@@ -4,7 +4,7 @@ The reference publishes trained weights as ``tf.train.Checkpoint(model)``
 saves (v0.0.1 LAS-small release; also tests/data/model-checkpoints).  This
 module reads them with the TF checkpoint reader (TensorFlow is required only
 for conversion, never at runtime) and emits {'params', 'batch_stats'}
-pytrees matching our Flax module trees — possible because the recurrent
+pytrees matching our module trees — possible because the recurrent
 layers deliberately keep Keras parameter layout (ops/rnn.py).
 
 Name mapping (reference attribute paths -> our module paths):
@@ -80,7 +80,7 @@ def convert_tf_checkpoint(checkpoint_path: str) -> Dict[str, Any]:
 
 
 def convert_and_save(checkpoint_path: str, output_path: str) -> None:
-    """Convert a TF checkpoint and save it as an Orbax weights checkpoint."""
+    """Convert a TF checkpoint and save it as a weights checkpoint (train/checkpoint.py)."""
     from ..train import save_weights
 
     save_weights(output_path, convert_tf_checkpoint(checkpoint_path))

@@ -10,7 +10,8 @@ config layer dependency-free and to sidestep pydantic v2 reserved names.
 from dataclasses import dataclass, field, fields
 from typing import Optional
 
-import yaml
+from ..utils.yaml import load_yaml
+
 
 _FILE_FORMATS = ("pcm", "wav", "flac", "mp3")
 _FEATURE_TYPES = ("spectrogram", "log-mel-spectrogram", "mfcc")
@@ -184,4 +185,4 @@ class DataConfig:
         from ..utils.io import open_file
 
         with open_file(file_path) as f:
-            return cls(**yaml.safe_load(f))
+            return cls(**load_yaml(f))

@@ -3,16 +3,15 @@
 YAML schema is identical to the reference's ModelConfig family
 (reference: speech_recognition/configs/model_config.py:10-125): the
 ``model_name`` key dispatches to LASConfig / DeepSpeechConfig, and
-``create_model()`` instantiates the corresponding Flax model definition.
+``create_model()`` instantiates the corresponding model definition.
 """
 
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
 from typing import List
 
-import yaml
-
 from .data_config import ConfigValidationError, _check_literal, _check_type
+from ..utils.yaml import load_yaml
 
 _RNN_TYPES = ("rnn", "lstm", "gru")
 
@@ -20,7 +19,7 @@ _RNN_TYPES = ("rnn", "lstm", "gru")
 class ModelConfig(ABC):
     @abstractmethod
     def create_model(self):
-        """Instantiate the Flax model definition for this config."""
+        """Instantiate the model definition for this config."""
 
     @property
     @abstractmethod
@@ -37,7 +36,7 @@ def get_model_config(model_config_path: str):
     from ..utils.io import open_file
 
     with open_file(model_config_path) as f:
-        model_config_dict = yaml.safe_load(f)
+        model_config_dict = load_yaml(f)
 
     model_name = model_config_dict["model_name"].lower()
     if model_name in ("ds2", "deepspeech2"):
@@ -115,7 +114,7 @@ class ConformerConfig(ModelConfig):
 
     # size of vocabulary
     vocab_size: int
-    # encoder width (model dim of every block; multiple of 128 fills MXU tiles)
+    # encoder width (model dim of every block; a multiple of 128 tiles matmuls evenly)
     encoder_dim: int
     # number of conformer blocks
     num_layers: int

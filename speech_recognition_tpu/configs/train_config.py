@@ -7,15 +7,15 @@ during construction.  Derived properties (``audio_pad_length`` /
 ``token_pad_length`` / ``total_steps`` / ``offset_steps``) mirror the
 reference exactly — except that static padding is the default on every
 device here, because static shapes are the XLA-native discipline (the
-reference only forces them on TPU, train_config.py:81-87).
+reference only forces them on its accelerator, train_config.py:81-87).
 """
 
 from dataclasses import dataclass, field
 from math import ceil
 from typing import Optional
 
-import yaml
-
+from ..backend import DEVICES, on_accelerator
+from ..utils.yaml import load_yaml
 from .data_config import ConfigValidationError, DataConfig, _check_literal, _check_type
 from .model_config import get_model_config
 
@@ -61,7 +61,7 @@ class TrainConfig:
     use_tfrecord: bool = False
     # tensorboard update frequency
     tensorboard_update_freq: int = 1
-    # use mixed precision (bfloat16 on TPU)
+    # use mixed precision (bfloat16 compute)
     mixed_precision: bool = False
     # random seed
     seed: Optional[int] = None
@@ -73,9 +73,9 @@ class TrainConfig:
     profile_steps: Optional[int] = None
     # fuse the audio feature frontend (STFT/mel/SpecAugment/delta) into the
     # on-device training step; the host pipeline only decodes + tokenizes.
-    # None = auto: ON for TPU tsv runs (the TPU-first default — batched MXU
-    # feature extraction beats per-example host numpy, and the host is
-    # usually the bottleneck at chip rates), OFF elsewhere (CPU/GPU runs and
+    # None = auto: ON for accelerator tsv runs (batched on-device feature
+    # extraction instead of per-example host numpy — the host is usually
+    # the bottleneck at accelerator rates), OFF elsewhere (CPU runs and
     # TFRecord datasets, whose features are precomputed)
     on_device_frontend: Optional[bool] = None
     # comma-separated audio-length bucket boundaries for bucketed batching
@@ -97,7 +97,7 @@ class TrainConfig:
     # schedule from the input shardings).  Composes with model_parallel
     fsdp: bool = False
     # multi-controller bootstrap (one jax process per host — the analog of
-    # the reference's TPUStrategy cluster resolver, reference
+    # the reference's distribution-strategy cluster resolver, reference
     # utils.py:130-156): when coordinator_address is set, the CLI calls
     # jax.distributed.initialize(coordinator_address, num_processes,
     # process_id) before the backend initializes, so jax.devices() spans
@@ -126,7 +126,7 @@ class TrainConfig:
             raise ConfigValidationError("'data_config'/'model_config' must be config file paths")
         if self.max_over_policy is not None:
             _check_literal("max_over_policy", self.max_over_policy, ("filter", "slice"))
-        _check_literal("device", self.device, ("CPU", "GPU", "TPU"))
+        _check_literal("device", self.device, DEVICES)
         _check_type(
             self,
             "train_dataset_size",
@@ -153,16 +153,16 @@ class TrainConfig:
         self.model_config = get_model_config(self.model_config_path)
 
         if self.on_device_frontend is None:
-            # TPU-first auto: raw PCM to the chip, features fuse into the
-            # jitted step; explicit True/False (CLI or YAML) always wins.
+            # accelerator auto: raw PCM to the device, features fuse into
+            # the jitted step; explicit True/False (CLI or YAML) always wins.
             # Exception: SpecAugment TIME WARP enabled — its bilinear warp
-            # gather is TPU-pathological (290 ms/batch measured vs ~2 ms for
-            # masks-only; PERF.md round-7), so warping stays in the host
-            # thread pool where it overlaps device steps.
+            # gather was far slower on device than masks-only on the machine
+            # this was first tuned for, so warping stays in the host thread
+            # pool where it overlaps device steps (GPU A/B queued).
             sa = self.data_config.spec_augment
             warp_on = bool(sa.enable and sa.W)
             self.on_device_frontend = (
-                self.device == "TPU" and not self.use_tfrecord and not warp_on
+                on_accelerator(self.device) and not self.use_tfrecord and not warp_on
             )
 
     @classmethod
@@ -170,7 +170,7 @@ class TrainConfig:
         from ..utils.io import open_file
 
         with open_file(file_path) as f:
-            return cls(**yaml.safe_load(f))
+            return cls(**load_yaml(f))
 
     @property
     def audio_pad_length(self) -> Optional[int]:

@@ -72,7 +72,7 @@ def get_dataset(
     ``shard=(index, count)`` keeps only global rows ``g`` with
     ``g % count == index`` — the multi-host data split (each jax process
     feeds its addressable devices a disjoint stride of the dataset, the
-    role TPUStrategy's dataset distribution played for the reference,
+    role the reference's distribution strategy played for its datasets,
     utils.py:130-156).  Ownership is computed over the canonical glob
     order, so the file-order shuffle is skipped when sharding (example-
     level shuffling still happens downstream in ``shuffle_stream``).
@@ -198,7 +198,7 @@ def padded_batch(
     with None, pads to the longest element per batch (CPU/GPU-style dynamic
     shapes, reference run/train.py:187-197).
     ``pad_to_batch`` pads a short final batch up to batch_size with zero rows
-    (static batch dimension for TPU), reporting the true count.
+    (static batch dimension for the accelerator), reporting the true count.
     ``with_lengths`` additionally yields the TRUE per-example frame counts
     [B] int32 (zero for batch-pad rows) between audio and tokens, so models
     can mask exactly even when SpecAugment time masks zero the tail frames
@@ -239,7 +239,7 @@ def quantized_padded_batch(
 ) -> Iterator[Tuple[np.ndarray, np.ndarray, int]]:
     """Padded batches with a BOUNDED set of shapes for jitted decode loops.
 
-    Dynamic per-batch padding (reference run/evaluate.py:81-85 off-TPU)
+    Dynamic per-batch padding (reference run/evaluate.py:81-85 off its accelerator)
     triggers a fresh XLA compile for every distinct (B, T): pathological for
     a real dev-set run.  Here the audio axis is padded up to the next
     multiple of ``time_quantum`` (or to ``audio_pad_length`` when given) and
@@ -280,9 +280,9 @@ def quantized_padded_raw_batch(
     ((audio [B, S] f32, sample_lengths [B] i32), tokens, n_valid).
 
     S is quantized in FRAME units so the jitted frontend + decode loop see a
-    bounded shape set; with ``max_frames`` (TPU) the shape is static:
+    bounded shape set; with ``max_frames`` (GPU) the shape is static:
     S = (frames - 1) * frame_step + frame_length.  Audio longer than the
-    static S is sliced (the reference's TPU slice policy, data.py:347-354).
+    static S is sliced (the reference's slice policy, data.py:347-354).
     """
     batch: List[Tuple[np.ndarray, np.ndarray]] = []
 
@@ -327,7 +327,7 @@ def bucket_batch(
 ) -> Iterator[Tuple[np.ndarray, ...]]:
     """Length-bucketed padded batching.
 
-    The reference pads every TPU batch to the global max (run/train.py:187-197
+    The reference pads every accelerator batch to the global max (run/train.py:187-197
     with train_config.py:81-87), wasting compute on short utterances.  Here
     examples are grouped by audio length into buckets with static per-bucket
     pad shapes — only ``len(bucket_boundaries)`` distinct compiled shapes, and

@@ -1,6 +1,6 @@
 """Losses and metrics (pure functions over logits).
 
-TPU-native counterpart of reference speech_recognition/measure.py.  All
+Counterpart of reference speech_recognition/measure.py.  All
 reductions are computed in float32 regardless of the model's compute dtype
 (the reference casts to fp32 the same way, measure.py:39).
 """
@@ -17,8 +17,8 @@ def sparse_categorical_crossentropy(y_true, logits, ignore_index: int = 0):
 
     Computed as logsumexp(logits) - logits[y] rather than via log_softmax:
     mathematically identical, but log_softmax materializes a full [B, N, V]
-    float32 tensor (~1 GB for the LAS-small bench shapes) that the fused
-    reduction + gather form never writes to HBM.
+    float32 tensor that the fused reduction + gather form never writes to
+    device memory.
     """
     y = y_true[..., None].astype(jnp.int32)
     lse = jax.scipy.special.logsumexp(logits.astype(jnp.float32), axis=-1)
@@ -46,9 +46,9 @@ def _emission_logprobs(logits, ids):
     """log softmax(logits) gathered at ``ids`` -> [B, T, K].
 
     Forward is a fused lse + tiny gather.  The custom backward replaces the
-    gather's transpose — a scatter-add into [B, T, V], which serializes on
-    TPU (~10 ms at DS2 bench shapes) — with a one-hot batched matmul on the
-    MXU (<1 ms), plus the softmax term from the lse.
+    gather's transpose — a scatter-add into [B, T, V] — with a one-hot
+    batched matmul, plus the softmax term from the lse.  Whether the
+    scatter-add or the matmul is faster on the GPU is an open A/B.
     """
     lse = jax.scipy.special.logsumexp(logits.astype(jnp.float32), axis=-1)
     vals = jnp.take_along_axis(logits, ids[:, None, :], axis=2).astype(jnp.float32)
@@ -80,8 +80,8 @@ def ctc_negative_log_likelihood(y_true, logits, blank_index: int, pad_index: int
     """Per-sequence CTC -log P(y | logits), full padded T as logit length.
 
     Own log-space forward DP instead of optax.ctc_loss: optax materializes
-    log_softmax over the whole [B, T, V] vocabulary (~900 MB float32 at
-    bench shapes, and again in backward); only the blank and the N label
+    log_softmax over the whole [B, T, V] vocabulary (and again in
+    backward); only the blank and the N label
     log-probs are ever needed, so compute lse as one fused reduction and
     gather [B, T, N+1] values.  Numerical equivalence with optax is tested
     (tests/models/test_deepspeech2.py).
@@ -162,25 +162,3 @@ def _ctc_normalize(per_seq, label_lengths):
     valid_row = (label_lengths > 0).astype(jnp.float32)
     per_seq = per_seq / jnp.maximum(label_lengths, 1.0) * valid_row
     return jnp.sum(per_seq) / jnp.maximum(jnp.sum(valid_row), 1.0)
-
-
-def ctc_loss_from_hidden(y_true, hid, W, b, blank_index: int, pad_index: int = 0):
-    """``ctc_loss`` of (hid @ W + b) without materializing [B, T, V] logits
-    when the fused Pallas pair supports the shape (ops/pallas/ctc_kernel.py);
-    identical-math XLA projection + `_emission_logprobs` otherwise."""
-    from .ops.pallas.ctc_kernel import fused_vocab_emissions, vocab_emissions_supported
-    from .ops.pallas.vocab_pad import pad_vocab_proj
-
-    B = hid.shape[0]
-    y = y_true.astype(jnp.int32)
-    ids = jnp.concatenate([y, jnp.full((B, 1), blank_index, jnp.int32)], axis=1)
-    # lane-align an unaligned vocab (kspon 8K) so the fused pair still fires;
-    # exact math + automatic grad slicing (ops/pallas/vocab_pad.py)
-    Wp, bp = pad_vocab_proj(W, b)
-    if vocab_emissions_supported(hid, Wp, ids):
-        emission = fused_vocab_emissions(hid, Wp, bp, ids)
-    else:
-        logits = hid @ W.astype(hid.dtype) + b.astype(hid.dtype)
-        emission = _emission_logprobs(logits, ids)
-    per_seq, label_lengths = _ctc_nll_from_emission(y, emission, pad_index)
-    return _ctc_normalize(per_seq, label_lengths)

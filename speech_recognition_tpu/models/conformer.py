@@ -3,21 +3,19 @@
 The reference framework ships exactly two model families — LAS and
 DeepSpeech2 (reference speech_recognition/configs/model_config.py:20-36).
 This adds a third, the Conformer encoder (Gulati et al. 2020,
-arXiv:2005.08100) with a CTC head, because its compute profile is what the
-TPU MXU is built for: every hot op is a large batched matmul (QKV
+arXiv:2005.08100) with a CTC head, because its compute profile suits a
+matrix accelerator: every hot op is a large batched matmul (QKV
 projections, attention einsums, 4x-expansion feed-forwards, pointwise
 convs), there is no sequential recurrence, and the whole forward is one
 fused XLA graph with static shapes.
 
 It plugs into the existing CTC infrastructure unchanged:
-- loss: ``measure.ctc_loss`` and the fused vocab+emissions Pallas pair via
-  the ``loss_from_hidden`` hook (same contract as DeepSpeech2,
-  models/deepspeech2.py:190-196);
+- loss: ``measure.ctc_loss`` (same contract as DeepSpeech2);
 - decoding: ``search.DeepSpeechSearcher`` (greedy / prefix-beam, on device);
 - batching/example semantics identical to DS2 (reference
   deepspeech2.py:186-202).
 
-Deviations from the paper, chosen for TPU-exactness:
+Deviations from the paper, chosen for static shapes and exact masking:
 - relative positional encoding is RoPE (rotary) instead of Transformer-XL
   relative attention — parameter-free, two elementwise rotations, no extra
   [T, T] gather, and still strictly relative (q_i . k_j depends on i-j);
@@ -39,17 +37,17 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-import flax.linen as nn
 
-from ..measure import ctc_loss, ctc_loss_from_hidden
+from .. import nn
+from ..measure import ctc_loss
 from ..ops.dropout import FastDropout
 from ..ops.dw_conv import depthwise_conv1d
-from ..ops.pallas.attention_kernel import NEG_INF, fused_mhsa, fused_mhsa_supported
 from ..ops.s2d_conv import Conv2DValid
 from .las import audio_frame_lengths, split_audio_lengths
 from .model_proto import ModelProto
 
+
+NEG_INF = -1e9
 
 # Encoder-internal time-axis tile alignment (see Conformer.hidden_states):
 # pad T' up to a multiple of TIME_PAD_MULTIPLE once it reaches TIME_PAD_GATE.
@@ -61,12 +59,11 @@ TIME_PAD_GATE = 128
 def _dropout(rate: float):
     """Dropout layer factory: counter-based hash dropout by default.
 
-    Threefry dropout measured 122.6 ms of the 210 ms Conformer train step at
-    bench shapes (PERF.md round-11: 6 sites/block x 16 blocks on up-to-
-    [B, T, 4D] tensors); ``FastDropout`` (ops/dropout.py) replaces the bit
-    generation with a fused position-hash and regenerates masks in the
-    backward.  SRT_FAST_DROPOUT=0 reverts to flax nn.Dropout (bit-for-bit
-    the old training randomness).  Neither carries params, so the flag never
+    Threefry bit generation over 6 sites/block x 16 blocks of up-to-
+    [B, T, 4D] tensors is a large share of a Conformer train step;
+    ``FastDropout`` (ops/dropout.py) replaces it with a fused position-hash
+    and regenerates masks in the backward.  SRT_FAST_DROPOUT=0 reverts to
+    the threefry ``nn.Dropout``.  Neither carries params, so the flag never
     touches checkpoint structure.
     """
     if os.environ.get("SRT_FAST_DROPOUT", "1") != "0":
@@ -162,33 +159,12 @@ class MHSA(nn.Module):
         q = rope_rotate(qkv[:, :, 0])
         k = rope_rotate(qkv[:, :, 1])
         v = qkv[:, :, 2]
-        p_drop = self.dropout if training else 0.0
-        if (
-            os.environ.get("SRT_FUSED_MHSA", "1") != "0"
-            and fused_mhsa_supported(B, T, D, H, q.dtype)
-        ):
-            # fused Pallas attention: scores/softmax/prob-dropout stay in
-            # VMEM (ops/pallas/attention_kernel.py).  Heads are packed on
-            # the lane axis so these reshapes are free.
-            bias = jnp.where(mask, 0.0, NEG_INF).astype(jnp.float32)
-            if p_drop > 0.0:
-                seeds = jax.random.randint(
-                    self.make_rng("dropout"), (B,), 0, np.iinfo(np.int32).max,
-                    dtype=jnp.int32,
-                )
-            else:
-                seeds = jnp.zeros((B,), jnp.int32)
-            ctx = fused_mhsa(
-                q.reshape(B, T, D), k.reshape(B, T, D), v.reshape(B, T, D),
-                bias, seeds, H, float(1.0 / np.sqrt(d)), p_drop,
-            )
-        else:
-            scores = jnp.einsum("bqhd,bkhd->bhqk", q, k, preferred_element_type=jnp.float32)
-            scores = scores / jnp.sqrt(jnp.float32(d))
-            scores = jnp.where(mask[:, None, None, :], scores, NEG_INF)
-            probs = jax.nn.softmax(scores, axis=-1).astype(self.dtype)
-            probs = _dropout(self.dropout)(probs, deterministic=not training)
-            ctx = jnp.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, D)
+        scores = jnp.einsum("bqhd,bkhd->bhqk", q, k, preferred_element_type=jnp.float32)
+        scores = scores / jnp.sqrt(jnp.float32(d))
+        scores = jnp.where(mask[:, None, None, :], scores, NEG_INF)
+        probs = jax.nn.softmax(scores, axis=-1).astype(self.dtype)
+        probs = _dropout(self.dropout)(probs, deterministic=not training)
+        ctx = jnp.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, D)
         out = nn.Dense(D, dtype=self.dtype, name="out")(ctx)
         return _dropout(self.dropout)(out, deterministic=not training)
 
@@ -213,7 +189,7 @@ class ConvModule(nn.Module):
         x = nn.Dense(2 * self.dim, dtype=self.dtype, name="pointwise1")(x)
         x = nn.glu(x, axis=-1)
         x = x * mask[:, :, None].astype(x.dtype)
-        # depthwise temporal conv: one tap-column per channel on the MXU via
+        # depthwise temporal conv: one tap-column per channel via
         # feature_group_count=dim; SAME padding keeps T static
         kernel = self.param(
             "depthwise_kernel",
@@ -309,9 +285,7 @@ class Conformer(ModelProto):
 
     Same framework contract as DeepSpeech2 (reference deepspeech2.py:122-202):
     identity ``make_example``, [T, F, C] batching shape, CTC loss keyed on
-    ``blank_index``/``pad_index``, and the ``loss_from_hidden`` fused-Pallas
-    hook (the vocab projection + CTC emission gather never materializes the
-    [B, T, V] logits on the fused path).
+    ``blank_index``/``pad_index``.
     """
 
     vocab_size: int
@@ -379,8 +353,6 @@ class Conformer(ModelProto):
             ]
         self.fully_connected = nn.Dense(self.vocab_size, dtype=self.dtype, name="fully_connected")
 
-    fused_loss_supported = True
-
     def __call__(self, audio_input, training: bool = False):
         """[B, T, F, C] (or (features, frame_lengths)) -> logits [B, T', V]."""
         return self.fully_connected(self.hidden_states(audio_input, training))
@@ -390,10 +362,10 @@ class Conformer(ModelProto):
         audio_input, frame_lengths = split_audio_lengths(audio_input)
         x, mask = self.subsampler(audio_input, frame_lengths, training)
         # Tile-align the encoder's time axis: two VALID stride-2 convs turn
-        # T=1024 into T'=255, one short of the 256 the MXU/VPU lane tiling
-        # wants, so every attention matmul and [T', T'] intermediate carries
-        # a ragged last tile.  Pad time up to a multiple of 128 for the
-        # blocks only and slice back before the CTC head: padded frames are
+        # T=1024 into T'=255, so every attention matmul and [T', T']
+        # intermediate carries a ragged last tile.  Pad time up to a
+        # multiple of 128 for the blocks only and slice back before the CTC
+        # head (whether this pays on the GPU is an open A/B): padded frames are
         # mask-False, so attention key-masks them, the conv module zeroes
         # them before the depthwise conv, and FFN/LN are per-frame — valid
         # frames are bit-identical either way (pinned in
@@ -414,19 +386,6 @@ class Conformer(ModelProto):
         # zero padded frames (DS2 parity semantics, deepspeech2.py:174-178):
         # CTC consumes the full padded T with blank-friendly masked rows
         return x * mask[:, :, None].astype(self.dtype)
-
-    @staticmethod
-    def vocab_projection_params(params):
-        """(kernel [D,V], bias [V]) of the vocab Dense (checkpoint-stable path)."""
-        fc = params["fully_connected"]
-        return fc["kernel"], fc["bias"]
-
-    def loss_from_hidden(self, params, hid, y_true, loss_fn):
-        """CTC loss from pre-projection hidden states (fused Pallas pair when
-        supported, identical-math XLA fallback).  Returns (loss, None)."""
-        W, b = self.vocab_projection_params(params)
-        loss = ctc_loss_from_hidden(y_true, hid, W, b, self.blank_index, self.pad_index)
-        return loss, None
 
     def get_loss_fn(self):
         blank, pad = self.blank_index, self.pad_index

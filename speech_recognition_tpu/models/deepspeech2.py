@@ -1,4 +1,4 @@
-"""DeepSpeech2 in Flax, TPU-first.
+"""DeepSpeech2.
 
 Architecture parity with reference speech_recognition/models/deepspeech2.py:
 - ``Convolution``: N x VALID Conv2D over [B, T, F, C] then freq/channel
@@ -15,9 +15,9 @@ Architecture parity with reference speech_recognition/models/deepspeech2.py:
 from typing import Tuple
 
 import jax.numpy as jnp
-import flax.linen as nn
 
-from ..measure import ctc_loss, ctc_loss_from_hidden
+from .. import nn
+from ..measure import ctc_loss
 from ..ops.rnn import BiRNN
 from ..ops.s2d_conv import Conv2DValid
 from .las import audio_frame_lengths, split_audio_lengths
@@ -43,7 +43,7 @@ class Convolution(nn.Module):
 
         x = audio_input.astype(self.dtype)
         for i, (ch, kernel, stride) in enumerate(zip(self.channels, self.kernel_sizes, self.strides)):
-            # Conv2DValid == nn.Conv(VALID) parameter-wise; on TPU the
+            # Conv2DValid == nn.Conv(VALID) parameter-wise; with SRT_S2D_CONV=1 the
             # stride-2-time layers take the phase-split stride-1 path
             # (ops/s2d_conv.py) whose backward avoids input dilation
             x = Conv2DValid(
@@ -165,11 +165,6 @@ class DeepSpeech2(ModelProto):
         )
         self.fully_connected = nn.Dense(self.vocab_size, dtype=self.dtype, name="fully_connected")
 
-    # the train/eval steps may ask for pre-projection hidden states, so the
-    # vocab matmul + CTC emission gather can run as the fused Pallas pair
-    # (ops/pallas/ctc_kernel.py) that never materializes [B,T,V] logits
-    fused_loss_supported = True
-
     def __call__(self, audio_input: jnp.ndarray, training: bool = False):
         """[B, T, F, C] (or (features, frame_lengths)) -> logits [B, T', V]."""
         return self.fully_connected(self.hidden_states(audio_input, training))
@@ -179,21 +174,6 @@ class DeepSpeech2(ModelProto):
         audio_input, frame_lengths = split_audio_lengths(audio_input)
         audio, mask = self.convolution(audio_input, training, frame_lengths)
         return self.recurrent(audio, mask, training) * mask[:, :, None].astype(self.dtype)
-
-    @staticmethod
-    def vocab_projection_params(params):
-        """(kernel [2H,V], bias [V]) of the vocab Dense from the params
-        pytree (checkpoint-stable path)."""
-        fc = params["fully_connected"]
-        return fc["kernel"], fc["bias"]
-
-    def loss_from_hidden(self, params, hid, y_true, loss_fn):
-        """CTC loss from pre-projection hidden states; fused Pallas pair
-        when supported, identical-math XLA fallback otherwise.  Returns
-        (loss, None) — DS2 has no logits-consuming metrics."""
-        W, b = self.vocab_projection_params(params)
-        loss = ctc_loss_from_hidden(y_true, hid, W, b, self.blank_index, self.pad_index)
-        return loss, None
 
     def get_loss_fn(self):
         blank, pad = self.blank_index, self.pad_index

@@ -1,8 +1,8 @@
-"""Listen, Attend and Spell (LAS) in Flax, TPU-first.
+"""Listen, Attend and Spell (LAS).
 
 Architecture parity with reference speech_recognition/models/las.py:
 - ``Attention``: multiplicative attention with projected query/key, -1e9
-  masking (reference las.py:20-59).  TPU change: the key projection is
+  masking (reference las.py:20-59).  Change: the key projection is
   computed ONCE over the encoder output and reused every decoder step
   (the reference re-projects keys inside every step, las.py:50).
 - ``Listener``: 2x stride-2 VALID Conv2D + dropout -> N x (BiRNN -> Dense ->
@@ -27,8 +27,8 @@ from typing import List, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-import flax.linen as nn
 
+from .. import nn
 from ..measure import sparse_categorical_accuracy, sparse_categorical_crossentropy
 from ..ops.rnn import BiRNN, RNNParams, cell_step, num_states
 from ..ops.s2d_conv import Conv2DValid
@@ -65,13 +65,12 @@ def audio_frame_lengths(audio: jnp.ndarray) -> jnp.ndarray:
 
 
 def _decoder_unroll() -> int:
-    """Unroll factor for the decoder scans.  Measured on v5e (LAS-small
-    B=128 bench step time): 1 -> 63.7ms, 2 -> 62.6, 4 -> 58.3, 8 -> 56.0;
-    the step body is several small dependent matmuls, so unrolling shrinks
-    per-iteration loop overhead (unlike the encoder scan, where it hurts)."""
+    """Unroll factor for the decoder scans; ``SRT_DEC_UNROLL`` overrides the
+    default of 1 (the step body is several small dependent matmuls, so
+    unrolling trades loop overhead against schedule size)."""
     import os
 
-    return int(os.environ.get("SRT_DEC_UNROLL", 8)) if jax.default_backend() == "tpu" else 1
+    return int(os.environ.get("SRT_DEC_UNROLL", 1))
 
 
 def split_audio_lengths(audio_input):
@@ -173,8 +172,8 @@ class Listener(nn.Module):
             strides=(self.STRIDE, self.STRIDE),
             dtype=self.dtype,
         )
-        # Conv2DValid == nn.Conv(VALID) parameter-wise, with the TPU
-        # phase-split stride-1 fast path for stride-2 time (ops/s2d_conv.py)
+        # Conv2DValid == nn.Conv(VALID) parameter-wise, with the opt-in
+        # phase-split stride-1 path for stride-2 time (ops/s2d_conv.py)
         audio = drop(Conv2DValid(32, name="conv1", **conv_kw)(audio))
         audio = drop(Conv2DValid(32, name="conv2", **conv_kw)(audio))
         B, T2 = audio.shape[0], audio.shape[1]
@@ -274,7 +273,7 @@ class AttendAndSpeller(nn.Module):
 
         Returning the pre-logits hidden state lets the teacher-forced
         training path hoist the [B,H] x [H,V] vocab matmul out of the
-        sequential scan entirely — one [N*B,H] x [H,V] MXU matmul instead of
+        sequential scan entirely — one [N*B,H] x [H,V] matmul instead of
         N small ones (reference recomputes it every step, las.py:291).
 
         :param audio_output: [B, S, Dv] listener output
@@ -345,7 +344,7 @@ class AttendAndSpeller(nn.Module):
 
         The reference beam loop tiles the encoder output/keys/mask to B*K
         rows (search.py:141-153), so every step re-streams K copies of the
-        two large attention operands from HBM.  Here only the decoder
+        two large attention operands from device memory.  Here only the decoder
         states are per-beam ([B*K, H] rows, beam-major within each batch
         element — same layout the tiled path used); attention runs with a
         K-query axis over one copy of keys/values.  Per-row arithmetic is
@@ -355,15 +354,6 @@ class AttendAndSpeller(nn.Module):
         :param states: flat state tuple of [B*K, H] arrays
         :return: (logits [B*K, V], new_states)
         """
-        x, states = self.step_beam_hidden(
-            audio_output, projected_keys, decoder_input, attention_mask, states
-        )
-        return self.feedforward(x), states
-
-    def step_beam_hidden(self, audio_output, projected_keys, decoder_input, attention_mask, states: Tuple):
-        """``step_beam`` up to (but not including) the vocab projection, so
-        the search loop can fuse projection + top-k + logsumexp in one
-        Pallas kernel (ops/pallas/topk_kernel.py)."""
         B, K = decoder_input.shape
         flat = decoder_input.reshape(B * K)
         token_mask = (flat != self.pad_id)[:, None].astype(self.dtype)
@@ -376,7 +366,8 @@ class AttendAndSpeller(nn.Module):
             projected_key=projected_keys,
         ).reshape(B * K, -1)
         x = jnp.concatenate([x, context], axis=-1)
-        return self._speller_cells(x, token_mask, states)
+        x, states = self._speller_cells(x, token_mask, states)
+        return self.feedforward(x), states
 
 
 class LAS(ModelProto):
@@ -439,54 +430,9 @@ class LAS(ModelProto):
             audio_output, projected_keys, decoder_input, attention_mask, states
         )
 
-    def decode_step_beam_hidden(self, audio_output, projected_keys, decoder_input, attention_mask, states):
-        """Beam decode step stopping before the vocab projection (for the
-        fused projection+top-k+logsumexp search kernel)."""
-        return self.attend_and_speller.step_beam_hidden(
-            audio_output, projected_keys, decoder_input, attention_mask, states
-        )
-
     # the train/eval steps may ask for time-major [N,B,V] logits to skip a
-    # pair of 0.5 GB [*,16000] transposes per step (fwd + its VJP twin)
+    # pair of [*,16000] transposes per step (fwd + its VJP twin)
     logits_time_major_supported = True
-    # ...or for pre-projection hidden states, so the vocab matmul + CE can
-    # run as the fused Pallas pair (ops/pallas/ce_kernel.py) that never
-    # materializes [N,B,V] logits
-    fused_ce_supported = True
-
-    @staticmethod
-    def vocab_projection_params(params):
-        """(kernel [H,V], bias [V]) of the decoder's vocab Dense, from the
-        model's params pytree (checkpoint-stable path)."""
-        ff = params["attend_and_speller"]["feedforward"]
-        return ff["kernel"], ff["bias"]
-
-    def hidden_states(self, inputs: Tuple, training: bool = False):
-        """Forward up to (not including) the vocab projection: [N,B,H].
-
-        Same trace as ``__call__`` minus the final Dense — used by the
-        fused CE+vocab train path.
-        """
-        return self._hiddens(inputs, training)
-
-    def loss_from_hidden(self, params, hid, y_true, loss_fn):
-        """Masked CE from pre-projection hidden states: the fused Pallas
-        CE+vocab pair when supported on this device/shape, else the
-        identical-math XLA projection + loss_fn.  Returns (loss, outputs)
-        where outputs is an int [N,B] preds array (fused) or [N,B,V]
-        logits (fallback); y_true must be time-major [N,B]."""
-        from ..ops.pallas.ce_kernel import ce_vocab_pallas_supported, fused_ce_vocab
-        from ..ops.pallas.vocab_pad import pad_vocab_proj
-
-        W, b = self.vocab_projection_params(params)
-        # lane-align an unaligned vocab (kspon 8K) so the fused pair still
-        # fires; exact math + automatic grad slicing (ops/pallas/vocab_pad.py)
-        Wp, bp = pad_vocab_proj(W, b)
-        if ce_vocab_pallas_supported(hid, Wp):
-            loss, preds = fused_ce_vocab(hid, Wp, bp, y_true, self.pad_id)
-            return loss, preds
-        logits = hid @ W.astype(hid.dtype) + b.astype(hid.dtype)
-        return loss_fn(y_true, logits), logits
 
     def __call__(self, inputs: Tuple, training: bool = False, time_major_logits: bool = False):
         """(audio [B,T,F,C] | (audio, frame_lengths), decoder_input [B,N]) -> logits.
@@ -497,7 +443,7 @@ class LAS(ModelProto):
         its backward twin move ~1 GB/step at bench shapes).
         """
         hiddens_all = self._hiddens(inputs, training)
-        # ONE [N*B,H] x [H,V] MXU matmul for every position incl. step 0
+        # ONE [N*B,H] x [H,V] matmul for every position incl. step 0
         logits = self.attend_and_speller.feedforward(hiddens_all)
         return logits if time_major_logits else jnp.swapaxes(logits, 0, 1)
 
@@ -545,7 +491,7 @@ class LAS(ModelProto):
         # Two decoder paths selected by the per-batch coin (reference
         # las.py:366-372).  Teacher-forced (rate 0.99 in every shipped
         # config): the scan emits hidden states only and the [N*B,H] x [H,V]
-        # vocab projection runs ONCE after the scan on the MXU.  Feedback:
+        # vocab projection runs ONCE after the scan.  Feedback:
         # logits must live inside the scan for the argmax.  lax.cond executes
         # only the sampled branch at runtime.
         def teacher_forced(mdl, states):
@@ -585,23 +531,6 @@ class LAS(ModelProto):
                 pk_in = projected_keys.astype(mdl.dtype)
                 val_in = audio_output.astype(mdl.dtype)
                 emb_t = jnp.swapaxes(emb_all, 0, 1)
-                from ..ops.decoder import _use_pallas_decoder
-
-                if _use_pallas_decoder(emb_t, pk_in, val_in, kernels):
-                    # pad the attention length ONCE here (autodiff slices the
-                    # grads back through jnp.pad) so neither Pallas kernel
-                    # copies the 50 MB pk/value operands again per call;
-                    # padded keys get -1e9 bias => exactly zero probability
-                    from ..ops.pallas.decoder_kernel import DEFAULT_CHUNK
-
-                    S = pk_in.shape[1]
-                    S_pad = -(-S // DEFAULT_CHUNK) * DEFAULT_CHUNK
-                    if S_pad != S:
-                        pk_in = jnp.pad(pk_in, ((0, 0), (0, S_pad - S), (0, 0)))
-                        val_in = jnp.pad(val_in, ((0, 0), (0, S_pad - S), (0, 0)))
-                        attn_bias = jnp.pad(
-                            attn_bias, ((0, 0), (0, S_pad - S)), constant_values=-1e9
-                        )
                 hiddens, _, _ = decoder_scan_lstm(
                     emb_t,
                     tok_mask,
@@ -664,10 +593,6 @@ class LAS(ModelProto):
     def get_metrics(self):
         pad_id = self.pad_id
         fn = lambda y_true, logits: sparse_categorical_accuracy(y_true, logits, pad_id)
-        # the fused-CE train path computes accuracy from argmax preds without
-        # calling fn; it reads the mask index from this attribute so the two
-        # paths can never disagree on what counts as padding
-        fn.ignore_index = pad_id
         return [("accuracy", fn)]
 
     @staticmethod

@@ -1,17 +1,18 @@
 """Abstract contract for ASR model families.
 
-TPU-native counterpart of the reference's ModelProto (reference:
+Counterpart of the reference's ModelProto (reference:
 speech_recognition/models/model_proto.py:7-54).  Models are pure-functional
-Flax modules; the contract adds the host-side plumbing the framework needs:
-loss/metric factories, padded-batch shapes, example construction, and
-checkpoint naming.
+modules (``speech_recognition_tpu.nn``); the contract adds the host-side
+plumbing the framework needs: loss/metric factories, padded-batch shapes,
+example construction, and checkpoint naming.
 """
 
 from abc import abstractmethod
 from typing import Callable, List, Optional, Tuple
 
-import flax.linen as nn
 import jax.numpy as jnp
+
+from .. import nn
 
 
 class ModelProto(nn.Module):

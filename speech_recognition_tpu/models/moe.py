@@ -13,10 +13,10 @@ dense single-device form runs — identical math either way
 (tests/test_expert_parallel.py).
 """
 
-import flax.linen as nn
 import jax.numpy as jnp
 import numpy as np
 
+from .. import nn
 from ..parallel import expert_parallel_moe, get_active_mesh, moe_ffn
 
 

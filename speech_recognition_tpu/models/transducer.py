@@ -25,10 +25,9 @@ TFRecords, tokenizers) is reused unchanged.
 
 from typing import Tuple
 
-import jax
 import jax.numpy as jnp
-import flax.linen as nn
 
+from .. import nn
 from ..ops.rnn import RNN
 from ..ops.transducer import joint_log_planes, transducer_loss
 from .conformer import TIME_PAD_GATE, TIME_PAD_MULTIPLE, ConformerBlock, ConvSubsampler
@@ -148,19 +147,10 @@ class Transducer(ModelProto):
         pruned = self.pruned_range
 
         def _planes(outputs, ids, frame_lens, label_lens):
-            """Fused Pallas joint (logits never touch HBM; ops/pallas/
-            transducer_kernel.py, 2657 -> see PERF round-14) when supported,
-            else the XLA scan.  SRT_FUSED_JOINT=0 forces the scan.  With
-            ``pruned_range`` set, the banded joint (ops/transducer_pruned.py
-            + ops/pallas/band_kernel.py) evaluates only an s_range-wide
-            label band per frame — a U1/s_range FLOP cut."""
-            import os
-
-            from ..ops.pallas.transducer_kernel import (
-                fused_joint_planes,
-                joint_planes_supported,
-            )
-
+            """Blank/target log-prob planes: the frame scan of
+            ops/transducer.joint_log_planes, or with ``pruned_range`` set the
+            banded joint (ops/transducer_pruned.py) that evaluates only an
+            s_range-wide label band per frame — a U1/s_range FLOP cut."""
             args = (
                 outputs["enc_proj"],
                 outputs["pred_proj"],
@@ -172,22 +162,6 @@ class Transducer(ModelProto):
                 from ..ops.transducer_pruned import pruned_log_planes
 
                 return pruned_log_planes(blank, pruned, *args, frame_lens, label_lens)
-            if os.environ.get("SRT_FUSED_JOINT", "1") == "1":
-                # lane-align an unaligned vocab (kspon 8K) so the fused
-                # pair still fires; exact math + automatic grad slicing
-                # (ops/pallas/vocab_pad.py)
-                from ..ops.pallas.vocab_pad import pad_vocab_proj
-
-                wo_p, bo_p = pad_vocab_proj(
-                    outputs["joint_kernel"], outputs["joint_bias"]
-                )
-                if joint_planes_supported(
-                    outputs["enc_proj"], outputs["pred_proj"], wo_p, ids
-                ):
-                    return fused_joint_planes(
-                        blank, outputs["enc_proj"], outputs["pred_proj"],
-                        wo_p, bo_p, ids,
-                    )
             return joint_log_planes(blank, *args)
 
         def loss_fn(y_true, outputs):

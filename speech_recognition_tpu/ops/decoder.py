@@ -19,8 +19,8 @@ state ``h_start``/``c_in0`` and each cell's pre-activation ``z`` and
 candidate cell state ``c_p``.  Everything else the backward needs — the
 query/score/prob/context trajectories, each cell's input ``x_in`` and
 recurrent-entry ``h_rec`` — is recomputed OUTSIDE the sequential loops as
-large batched MXU einsums / elementwise passes, so the scans carry ~40%
-fewer per-step HBM streams (measured win on the v5e bench; PERF.md).
+large batched einsums / elementwise passes, so the scans carry fewer
+per-step device-memory streams.
 
 Semantics are IDENTICAL to the scan in models/las.py (same state threading
 through the cell stack — reference las.py:285-288 — same pad gating, same
@@ -36,9 +36,8 @@ import jax.numpy as jnp
 
 def _unroll() -> int:
     """Scan unroll for the decoder forward/backward (several small dependent
-    matmuls per body).  Swept on v5e with the custom VJP: 1 -> 44.0 ms/step,
-    4 -> 42.0, 8 -> 45.2 on the LAS-small B=128 bench."""
-    return int(os.environ.get("SRT_DEC_UNROLL", 4)) if jax.default_backend() == "tpu" else 1
+    matmuls per body); ``SRT_DEC_UNROLL`` overrides the default of 1."""
+    return int(os.environ.get("SRT_DEC_UNROLL", 1))
 
 
 def _lstm_gates(z):
@@ -70,29 +69,10 @@ def decoder_scan_lstm(
     return hidden, h_last, c_last
 
 
-def _use_pallas_decoder(emb, pk, value, kernels) -> bool:
-    if os.environ.get("SRT_PALLAS_DECODER", "1") != "1":
-        return False
-    # on a multi-device mesh the kernels run per data-shard via shard_map
-    # (ops/pallas/sharding.py); the gate checks per-shard shapes
-    from .pallas.decoder_kernel import decoder_pallas_supported
-
-    return decoder_pallas_supported(emb, pk, value, kernels)
-
-
 def _decoder_fwd_core(
     emb, token_mask, pk, value, attn_bias, qw, qb, kernels, rkernels, biases,
     cell_masks, out_mask, h0, c0,
 ):
-    if _use_pallas_decoder(emb, pk, value, kernels):
-        # Pallas mega-kernel: pk/value stay VMEM-resident across all steps
-        # instead of streaming ~50 MB from HBM per step (PERF.md headroom)
-        from .pallas.decoder_kernel import decoder_fwd_pallas
-
-        return decoder_fwd_pallas(
-            emb, token_mask, pk, value, attn_bias, qw, qb, kernels, rkernels,
-            biases, cell_masks, out_mask, h0, c0,
-        )
     n_cells = len(kernels)
 
     def body(carry, inp):
@@ -154,28 +134,10 @@ def _decoder_bwd(residuals, cotangents):
     r_T = tuple(r.T for r in rkernels)
 
     # ---- recompute the attention trajectory outside the scans: one batched
-    # MXU einsum each instead of a 16-33 MB HBM stream through both loops
+    # einsum each instead of a per-step stream through both loops
     q = h_start @ qw + qb  # true q: feeds dpk directly, not just the softmax
     scores = jnp.einsum("nbh,bsh->nbs", q, pk) + attn_bias[None]
     probs = jax.nn.softmax(scores, axis=-1)
-
-    use_pallas = (
-        _use_pallas_decoder(emb, pk, value, kernels)
-        and os.environ.get("SRT_PALLAS_DECODER_BWD", "1") == "1"
-    )
-    if use_pallas:
-        # Pallas reverse-loop kernel: pk/value VMEM-resident for the
-        # attention VJP instead of 50 MB/step of HBM streaming
-        from .pallas.decoder_kernel import decoder_bwd_pallas
-
-        dh0, dc0, dzs, demb, dctx, dscores, dq = decoder_bwd_pallas(
-            dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value,
-            qw, kernels, rkernels, cell_masks, out_mask, zs, c_ps, He,
-        )
-        return _decoder_bwd_tail(
-            emb, token_mask, pk, value, qw, kernels, cell_masks, out_mask,
-            h_start, zs, c_ps, q, probs, dzs, demb, dctx, dscores, dq, dh0, dc0,
-        )
 
     def body(carry, inp):
         dh, dc = carry
@@ -236,7 +198,7 @@ def _decoder_bwd(residuals, cotangents):
     )
 
     # ------------------------------------------------ hoisted trajectories
-    # (recomputed from the minimal residual streams; all elementwise or MXU)
+    # (recomputed from the minimal residual streams; elementwise or einsum)
     dz0 = dzs[0]
     dx0 = (dz0 @ k_T[0]) * cell_masks[0][None]
     demb = dx0[..., :He]
@@ -254,9 +216,9 @@ def _decoder_bwd_tail(
     emb, token_mask, pk, value, qw, kernels, cell_masks, out_mask,
     h_start, zs, c_ps, q, probs, dzs, demb, dctx, dscores, dq, dh0, dc0,
 ):
-    """Post-scan weight-gradient einsums shared by the XLA and Pallas
-    backward paths: every dW is one large batched MXU contraction over the
-    per-step streams (never inside the sequential loop)."""
+    """Post-scan weight-gradient einsums: every dW is one large batched
+    contraction over the per-step streams (never inside the sequential
+    loop)."""
     n_cells = len(kernels)
     He = emb.shape[-1]
     dz0 = dzs[0]

@@ -1,25 +1,21 @@
 """Counter-based hash dropout — the cheap path for dropout-heavy models.
 
-Why: standard dropout (flax ``nn.Dropout``) draws bits with threefry2x32,
-a ~dozen-round integer cipher per 64 output bits.  For a model like the
+Why: standard dropout (``nn.Dropout``) draws bits with threefry2x32, a
+~dozen-round integer cipher per 64 output bits.  For a model like the
 Conformer — 6 dropout sites per block x 16 blocks on up-to-[B, T, 4D]
-tensors, ~1.6e9 draws per forward at bench shapes — the bit generation plus
-the fusion breaks it forces measured 122.6 ms of a 210 ms train step
-(PERF.md round-11 sweep).  The reference framework's equivalents are the
+tensors, ~1.6e9 draws per forward at bench shapes — the bit generation
+plus the fusion breaks it forces are a large share of a train step.  The reference framework's equivalents are the
 Keras Dropout layers (e.g. reference speech_recognition/models/las.py:66,
 deepspeech2.py:158); dropout *semantics* here are identical — Bernoulli(1-p)
 keep, survivors scaled by 1/(1-p) — only the bit source differs.
 
 How: each element's keep decision is a pure function of
 (seed, element coordinates) — a murmur3-fmix32-style avalanche over a
-linear combination of the coordinate iotas.  This is the same construction
-the fused-MHSA Pallas kernel uses in-kernel and that is validated on-chip
-against an exact oracle (ops/pallas/attention_kernel.py ``_keep_mask``).
-Two consequences:
+linear combination of the coordinate iotas.  Two consequences:
 
-- cheap: ~10 plain int32 VPU ops per element, all fusable into the
+- cheap: ~10 plain int32 ops per element, all fusable into the
   surrounding elementwise chain — no separate RNG kernel, no [shape] mask
-  tensor round-tripped through HBM;
+  tensor round-tripped through device memory;
 - recomputable: the backward regenerates the mask from the scalar seed
   (``jax.custom_vjp`` below), so autodiff saves NO residual for dropout —
   zero activation memory, zero extra HBM traffic.
@@ -34,7 +30,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import flax.linen as nn
+
+from .. import nn
 
 __all__ = ["hash_uniform", "hash_dropout", "FastDropout"]
 
@@ -57,8 +54,7 @@ def hash_uniform(seed, shape, salt: int = 0):
     ``seed`` is a scalar int32 (traced ok).  The value at each position is
     layout-independent — slicing/resharding the output equals slicing the
     full tensor — which is what lets a backward pass regenerate a forward's
-    mask by construction (same guarantee, same avalanche as the on-chip
-    validated ops/pallas/attention_kernel.py::_keep_mask).
+    mask by construction.
     """
     x = jnp.asarray(seed, jnp.int32) * _c(0x9E3779B1) + jnp.int32(salt) * _c(0x85EBCA6B)
     for axis, _ in enumerate(shape):

@@ -23,10 +23,10 @@ broken op; forward-type grouped convs partition correctly.
 
 The workaround is only needed where the partitioner runs: on a single
 device the plain grouped-conv autodiff is exact AND keeps the whole
-backward on the MXU, so ``depthwise_conv1d`` auto-selects it there
+backward as plain matmuls, so ``depthwise_conv1d`` auto-selects it there
 (``spmd_safe=None`` -> devices > 1; ``SRT_SPMD_SAFE_DWCONV=0/1``
 overrides).  The tap-sum accumulates in f32 (``jnp.sum(dtype=f32)``) —
-bf16 products, f32 accumulation, matching the conv's own MXU semantics
+bf16 products, f32 accumulation, matching the conv's own matmul semantics
 over the ~B*T-term reduction.
 
 Used by the Conformer convolution module (models/conformer.py) and through
@@ -73,7 +73,7 @@ def _auto_spmd_safe() -> bool:
     which mesh a caller actually shards over (the active-mesh registry is
     advisory; ad-hoc NamedSharding bypasses it, and a registry probe here
     mis-gated exactly that way under test).  Callers that KNOW their mesh
-    is single-axis opt into the all-MXU backward with
+    is single-axis opt into the plain-autodiff backward with
     SRT_SPMD_SAFE_DWCONV=0 — run/train.py does so for its pure-dp mesh."""
     env = os.environ.get("SRT_SPMD_SAFE_DWCONV")
     if env is not None:
@@ -119,7 +119,7 @@ def _bwd(res, dy):
 
     # dkernel[k, 0, c] = sum_{b,t} xp[b, t+k, c] * dy[b, t, c]; f32
     # accumulation over the B*T-term reduction (bf16 products would lose
-    # the conv's MXU f32-accumulate semantics under mixed precision)
+    # the conv's f32-accumulate semantics under mixed precision)
     T = x.shape[1]
     xp = jnp.pad(x, ((0, 0), (lo, hi), (0, 0)))
     dk = jnp.stack(

@@ -1,10 +1,10 @@
 """On-device audio feature frontend (STFT → spectrogram / log-mel / MFCC).
 
-TPU-native reimplementation of the reference's tf.signal feature chain
+XLA-native reimplementation of the reference's tf.signal feature chain
 (reference: speech_recognition/data.py:122-241).  All functions are pure,
 jit-compatible, static-shaped, and validated numerically against tf.signal in
 tests/test_features.py.  The heavy ops (mel filterbank projection, DCT-II)
-are expressed as matmuls so XLA places them on the MXU; framing is a gather;
+are expressed as matmuls so XLA runs them on the matrix units; framing is a gather;
 the FFT uses XLA's native rfft.
 
 Conventions matched to tf.signal:
@@ -131,9 +131,9 @@ def _windowed_rdft_basis(frame_length: int, fft_length: int) -> np.ndarray:
 
 
 def power_stft(audio, frame_length: int, frame_step: int, fft_length: Optional[int] = None, xp=jnp):
-    """|STFT|² (power spectrum), TPU-native.
+    """|STFT|² (power spectrum).
 
-    On device the window + rDFT collapse into ONE [L, 2K] matmul on the MXU
+    On device the window + rDFT collapse into ONE [L, 2K] matmul
     (precision=HIGHEST: f32-exact, max |Δ| 4e-7 of peak power vs rfft) —
     XLA's non-power-of-two FFT (e.g. the shipped fft_length=320) costs 9 ms
     at bench shapes where the matmul costs 2.3 (PERF.md round-7).  The host
@@ -211,7 +211,7 @@ def make_log_mel_spectrogram(
 ):
     """Log-mel spectrogram feature fn (reference data.py:145-189).
 
-    Chain: |STFT|² → mel filterbank matmul (MXU) → log(x + eps).
+    Chain: |STFT|² → mel filterbank matmul → log(x + eps).
     Returns fn(audio [NumSamples]) -> [NumFrame, num_mel_bins, 1].
     """
     mel_filterbank = linear_to_mel_weight_matrix(
@@ -223,7 +223,7 @@ def make_log_mel_spectrogram(
         if xp is np:
             mel = power @ mel_filterbank
         else:
-            # pin f32 matmul accumulation on TPU (DEFAULT would drop to bf16
+            # pin full f32 matmul precision (DEFAULT may drop to TF32/bf16
             # passes and silently break the tf.signal parity the CPU-backend
             # tests certify)
             mel = jnp.matmul(power, jnp.asarray(mel_filterbank), precision=jax.lax.Precision.HIGHEST)
@@ -260,7 +260,7 @@ def make_mfcc(
     """MFCC feature fn (reference data.py:192-241).
 
     tf.signal.mfccs_from_log_mel_spectrograms == DCT-II(log_mel) * rsqrt(2N);
-    here the DCT is a [N, num_mfcc] matmul so it lands on the MXU.
+    here the DCT is a [N, num_mfcc] matmul.
     Returns fn(audio [NumSamples]) -> [NumFrame, num_mfcc, 1].
     """
     log_mel_fn = make_log_mel_spectrogram(

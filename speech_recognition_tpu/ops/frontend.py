@@ -1,10 +1,10 @@
 """Fused on-device batch frontend: raw PCM -> model-ready features in one jit.
 
 The reference computed features per-example on the host inside tf.data
-(reference: run/train.py:70-116).  TPU-first alternative: ship padded raw
+(reference: run/train.py:70-116).  Accelerator alternative: ship padded raw
 audio [B, num_samples] to the device and compute framing -> STFT -> log-mel /
 MFCC -> SpecAugment -> delta-accelerate for the whole batch inside the train
-step's jit.  The mel projection and MFCC DCT are batched matmuls on the MXU;
+step's jit.  The mel projection and MFCC DCT are batched matmuls;
 XLA fuses the elementwise chain; the host pipeline is left with nothing but
 decode + tokenize.
 

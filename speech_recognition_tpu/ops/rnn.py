@@ -1,11 +1,11 @@
-"""Recurrent layers as lax.scan time-loops, designed for TPU.
+"""Recurrent layers as lax.scan time-loops.
 
 Replaces the reference's Keras RNN stack (reference: speech_recognition/
 models/las.py:10-17, 62-126) with mask-aware scan recurrences:
 
 - The input projection ``x @ W_in`` for the whole sequence is hoisted out of
-  the scan as one large [B*T, D] x [D, G*H] matmul that XLA tiles onto the
-  MXU; the per-step body only computes the [B, H] x [H, G*H] recurrent
+  the scan as one large [B*T, D] x [D, G*H] matmul; the per-step body only
+  computes the [B, H] x [H, G*H] recurrent
   matmul.
 - Masked timesteps leave the carried state untouched and emit zeros, which
   yields exact pad-invariance (tests/models assert the reference's
@@ -21,7 +21,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+
+from .. import nn
 
 RNN_TYPES = ("rnn", "lstm", "gru")
 
@@ -76,27 +77,6 @@ def init_state(rnn_type: str, batch: int, units: int, dtype) -> Tuple[jnp.ndarra
     return (zeros, zeros) if rnn_type == "lstm" else (zeros,)
 
 
-def _use_pallas_sequence(rnn_type: str, training: bool) -> bool:
-    """Use the Pallas full-sequence kernel (ops/pallas/rnn_kernel.py) for
-    inference-path LSTM/GRU on TPU.  Opt-in via SRT_PALLAS_RNN=1 (the kernel
-    is forward-only; training always takes the differentiable scan path).
-
-    Measured on the real chip (tools/pallas_check.py, T=255 B=128 H=256):
-    GRU 1.28 ms vs 1.50 ms scan (17% faster); LSTM 1.41 ms vs 1.19 ms
-    (slower — XLA's scan lowering is already tight for a one-matmul body),
-    so the kernel is only selected for GRU."""
-    import os
-
-    import jax
-
-    return (
-        not training
-        and rnn_type == "gru"
-        and os.environ.get("SRT_PALLAS_RNN", "0") == "1"
-        and jax.default_backend() == "tpu"
-    )
-
-
 def cell_step(
     rnn_type: str,
     x_proj_t: jnp.ndarray,
@@ -139,7 +119,7 @@ def cell_step(
 # with a [H,B]x[B,4H] matmul INSIDE every backward step — on the sequential
 # critical path.  This custom VJP's backward scan computes only the gate
 # grads and the dh chain (one matmul per step); dR is then ONE
-# [H, T*B] x [T*B, 4H] MXU matmul over the saved trajectories.  Forward math
+# [H, T*B] x [T*B, 4H] matmul over the saved trajectories.  Forward math
 # is identical to the body in RNN.__call__ (gates saved as residuals, same
 # as XLA's own backward).
 @functools.partial(jax.custom_vjp, nondiff_argnums=(5,))
@@ -218,7 +198,7 @@ def _lstm_scan_bwd(reverse, residuals, cotangents):
         reverse=not reverse,
     )
     dx = dz  # z = x + h @ R
-    # the hoisted weight gradient: one big MXU matmul over the trajectory
+    # the hoisted weight gradient: one big matmul over the trajectory
     drk = jnp.einsum("tbh,tbg->hg", h_prev, dz)
     dmask = jnp.zeros_like(mask_f_t)
     return dx, dmask, drk, dh0, dc0
@@ -320,10 +300,8 @@ class RNN(nn.Module):
     # rematerialize the scan body in the backward pass (trade FLOPs for the
     # per-step gate activation memory; lets bigger batches fit HBM)
     remat: bool = False
-    # scan unroll factor; 0 = auto.  Measured on v5e (bench.py sweep): any
-    # unrolling of the encoder scan HURTS (1: 63.7ms/step, 4: 73.1, 8: 67.5,
-    # 16: 77.5 on the LAS-small B=128 bench) — the body is a single
-    # dependent matmul, so unrolling only inflates the schedule.  Auto = 1.
+    # scan unroll factor; 0 = SRT_RNN_UNROLL (default 1): the body is a
+    # single dependent matmul, so unrolling mostly inflates the schedule
     unroll: int = 0
 
     def _unroll(self) -> int:
@@ -362,7 +340,7 @@ class RNN(nn.Module):
                 / keep
             )
 
-        # hoisted input projection: one big MXU matmul
+        # hoisted input projection: one big matmul
         x_proj = inputs @ kernel + input_bias  # [B, T, G*H]
 
         if initial_state is None:
@@ -372,20 +350,6 @@ class RNN(nn.Module):
 
         mask_t = jnp.swapaxes(mask, 0, 1)[..., None]  # [T, B, 1]
         x_proj_t = jnp.swapaxes(x_proj, 0, 1)  # [T, B, G*H]
-
-        if _use_pallas_sequence(self.rnn_type, training):
-            from .pallas.rnn_kernel import rnn_sequence_pallas
-
-            outputs_t, final_state = rnn_sequence_pallas(
-                self.rnn_type,
-                x_proj_t,
-                mask_t,
-                recurrent_kernel,
-                recurrent_bias,
-                initial_state=state0,
-                reverse=self.reverse,
-            )
-            return jnp.swapaxes(outputs_t, 0, 1), final_state
 
         import os
 

@@ -7,11 +7,9 @@ A VALID conv whose time stride is 2 satisfies, for taps w[d] (d < kt):
 so on the phase-split input xs[u, (p,c)] = x[2u+p, c] it becomes a
 STRIDE-1 VALID conv with kernel k2[e, kf, (p,c), o] = w[2e+p, kf, c, o]
 (taps zero-padded to an even count).  Stride-1 convs need no input
-dilation in either gradient; XLA's dilated-correlation backward for the
-original strided conv runs at ~15% MXU on DeepSpeech2's large kernels
-(41x11 / 21x11: conv backward was ~33 ms of the 58 ms step —
-tools/profile_ds2.py), while the phase-split chain measures 23.5 vs
-44.0 ms fwd+bwd in isolation (tools/s2d_conv_bench.py).
+dilation in either gradient, which matters where the compiler's
+dilated-correlation backward for the strided conv is slow (DeepSpeech2's
+large 41x11 / 21x11 kernels).
 
 ``Conv2DValid`` is a drop-in for ``nn.Conv(..., padding="VALID")`` with an
 identical parameter pytree ("kernel" [kt,kf,ci,co] lecun-normal, "bias"
@@ -21,8 +19,9 @@ models/las.py:159-164).  The weight rearrangement happens inside the
 forward, so checkpoints and the converter are unaffected and autodiff
 routes dW through the (exact) pad/reshape/transpose.
 
-Gate: SRT_S2D_CONV=1 (default) uses the fast path on TPU when the time
-stride is 2; "force" uses it on any backend (tests); "0" disables.
+Gate: off by default; SRT_S2D_CONV=1 uses the phase-split path for
+wide (>= 8 tap) time kernels with time stride 2, "force" for every
+stride-2 conv (tests).  Whether it pays on the GPU is an open A/B.
 """
 
 import functools
@@ -31,20 +30,19 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+
+from .. import nn
 
 
 def _s2d_enabled(time_stride: int, time_taps: int) -> bool:
-    v = os.environ.get("SRT_S2D_CONV", "1")
+    v = os.environ.get("SRT_S2D_CONV", "0")
     if v == "0" or time_stride != 2:
         return False
     if v == "force":
         return True
-    # measured crossover (same-process step A/Bs): DS2's 41/21-tap convs
-    # 57.8 -> 42.4 ms; LAS's 3-tap stem 36.7 -> 39.5 ms (XLA wins small
-    # kernels).  Phase-split only pays when the dilated backward is the
-    # dominant cost, i.e. for wide time kernels.
-    return time_taps >= 8 and jax.default_backend() == "tpu"
+    # phase-split only pays when the dilated backward is the dominant
+    # cost, i.e. for wide time kernels
+    return time_taps >= 8
 
 
 def valid_conv2d(x, kernel, strides):
@@ -71,8 +69,7 @@ def _phase_split_time(x, kernel):
 def _phase_split_freq(x, kernel):
     """Same identity on the freq axis.  Because freq is adjacent to the
     channel axis, both rearrangements are CONTIGUOUS reshapes — no
-    transpose/relayout (the axis-swapped variant cost a 2.1 ms dx
-    relayout in conv0's backward at DS2 bench shapes)."""
+    transpose/relayout."""
     B, T, F, C = x.shape
     kt, kf, ci, co = kernel.shape
     kf2 = (kf + 1) // 2
@@ -107,15 +104,9 @@ def time_s2d_valid_conv2d(x, kernel, strides, split_freq: bool = False):
 
 
 def _pdx_enabled() -> bool:
-    # default OFF: measured SLOWER than XLA's native dilated dx at the LAS
-    # conv2 shapes (isolated chain 4.9 -> 5.9 ms; the stride-1 phase conv
-    # lowers at ~3% MXU and the depth-to-space interleave costs ~1 ms
-    # fused).  Kept as a validated opt-in for shapes where the dilated
-    # backward dominates; see PERF.md round-7.
-    v = os.environ.get("SRT_PDX_CONV", "0")
-    if v == "0":
-        return False
-    return v == "force" or jax.default_backend() == "tpu"
+    # opt-in only (SRT_PDX_CONV=1 or "force"): a validated alternative for
+    # shapes where the dilated backward dominates
+    return os.environ.get("SRT_PDX_CONV", "0") != "0"
 
 
 def _dx_kernel(kernel, strides):
@@ -159,9 +150,7 @@ def _dx_axis_pads(size_in, taps, stride, L, out):
 
 def conv2d_dx_phase(dy, kernel, strides, x_shape):
     """d/d(input) of ``valid_conv2d(x, kernel, strides)`` for strides in
-    {1,2}, computed WITHOUT input dilation (XLA's dilated-correlation
-    gradient runs at a few-percent MXU on small kernels — conv2's dx alone
-    was 2.85 ms of the LAS step)."""
+    {1,2}, computed WITHOUT input dilation."""
     B, T, F = x_shape[0], x_shape[1], x_shape[2]
     kt, kf, ci, co = kernel.shape
     k2, (Lt, Pt), (Lf, Pf) = _dx_kernel(kernel, strides)
@@ -179,8 +168,8 @@ def conv2d_dx_phase(dy, kernel, strides, x_shape):
 def valid_conv2d_pdx(x, kernel, strides):
     """valid_conv2d with a phase-decomposed d/d(input): forward and dW keep
     XLA's native paths (both fast for small kernels); only the pathological
-    dilated dx is replaced.  Used by the LAS conv stem, whose whole-conv
-    phase-split loses (relayout of x dominates — PERF.md round-7)."""
+    dilated dx is replaced (for small strided kernels such as the LAS conv
+    stem, where a whole-conv phase-split pays a relayout of x)."""
     return valid_conv2d(x, kernel, strides)
 
 

@@ -1,4 +1,4 @@
-"""RNN-Transducer (RNN-T) lattice loss, TPU-first.
+"""RNN-Transducer (RNN-T) lattice loss.
 
 Beyond-parity addition (the reference — cosmoquester/speech-recognition —
 ships LAS and DeepSpeech2 only): the transducer objective (Graves 2012,
@@ -24,7 +24,7 @@ Design notes (why this shape, not a port of warp-transducer):
   tests/test_transducer.py, values vs a brute-force path-enumeration
   oracle.
 * Static shapes throughout: padded lattices + ``frame_lens``/``label_lens``
-  masks, per the repo's TPU static-shape discipline.  Out-of-range emit
+  masks, per the repo's static-shape discipline.  Out-of-range emit
   slots carry ``_NEG`` (finite -1e30, not -inf: -inf + -inf = -inf is fine
   but -inf - -inf = nan in the logaddexp grads).
 """
@@ -281,7 +281,7 @@ def _joint_planes_bwd(blank_index, res, cots):
     e_blank = (jnp.arange(V) == blank_index).astype(f32)  # [V]
     onehot_ids = (ids[:, :, None] == jnp.arange(V)[None, None, :]).astype(
         f32
-    )  # [B, U, V] — MXU scatter (measure.py convention); per-step transient
+    )  # [B, U, V] — matmul scatter (measure.py convention); per-step transient
 
     def body(carry, inp):
         dpred, dwo, dbo = carry

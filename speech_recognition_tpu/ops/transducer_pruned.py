@@ -12,7 +12,7 @@ frame t to a window of ``s_range`` consecutive label positions
 [p_t, p_t + s_range) and evaluates the joint only there — an s_range/U1
 FLOP cut (8x at bench shapes with s_range=8).
 
-Design (TPU-first, not a port of k2's CUDA two-pass scheme):
+Design (static shapes, not a port of k2's CUDA two-pass scheme):
 
 * The band ``p`` is STATIC-SHAPE data: one int per (b, t), computed from
   the length ratio (``band_offsets`` — the linear-alignment band).  k2
@@ -27,12 +27,11 @@ Design (TPU-first, not a port of k2's CUDA two-pass scheme):
   DP ``ops/transducer.transducer_loss``: off-band nodes carry no
   probability, so the DP itself implements the pruned objective and all
   of its masking/NaN-safety discipline is reused as-is.  The DP cost is
-  O(T·U) on the VPU — noise next to the joint.
+  O(T·U) elementwise work — noise next to the joint.
 * ``banded_joint_planes`` (this module) is the XLA scan implementation
   with a custom VJP that recomputes each frame's [B, S, V] logits in the
   backward (mirror of ops/transducer.joint_log_planes, which it falls
-  back to the layout of); ``ops/pallas/band_kernel.py`` is the fused
-  Pallas pair that keeps the logits tiles in VMEM.
+  back to the layout of).
 * The pruned loss sums a SUBSET of the dense loss's paths, so it upper-
   bounds the dense NLL and equals it exactly when s_range >= U+1
   (pinned in tests/test_transducer_pruned.py, along with the brute-force
@@ -230,30 +229,14 @@ def pruned_log_planes(
     blank_index, s_range, enc_proj, pred_proj, wo, bo, ids, frame_lens, label_lens
 ):
     """Dense-layout (lp_blank [B,T,U+1], lp_emit [B,T,U]) planes of the
-    PRUNED objective: the banded joint (fused Pallas when supported, XLA
-    scan otherwise; SRT_FUSED_JOINT=0 forces the scan) scattered onto the
-    -1e30 floor.  Drop-in for joint_log_planes ahead of transducer_loss."""
-    import os
-
+    PRUNED objective: the banded joint scan scattered onto the -1e30
+    floor.  Drop-in for joint_log_planes ahead of transducer_loss."""
     U1 = pred_proj.shape[1]
     T = enc_proj.shape[1]
     p = jax.lax.stop_gradient(band_offsets(frame_lens, label_lens, T, s_range))
-    args = (enc_proj, pred_proj, wo, bo, ids, p)
-    use_fused = False
-    if os.environ.get("SRT_FUSED_JOINT", "1") == "1":
-        from .pallas.band_kernel import banded_planes_supported, fused_banded_planes
-        from .pallas.vocab_pad import pad_vocab_proj
-
-        # lane-align an unaligned vocab (kspon 8K) so the fused pair still
-        # fires; exact math + automatic grad slicing (ops/pallas/vocab_pad.py)
-        wo_p, bo_p = pad_vocab_proj(wo, bo)
-        use_fused = banded_planes_supported(enc_proj, pred_proj, wo_p, ids, s_range)
-    if use_fused:
-        lpb_band, lpe_band = fused_banded_planes(
-            blank_index, s_range, enc_proj, pred_proj, wo_p, bo_p, ids, p
-        )
-    else:
-        lpb_band, lpe_band = banded_joint_planes(blank_index, s_range, *args)
+    lpb_band, lpe_band = banded_joint_planes(
+        blank_index, s_range, enc_proj, pred_proj, wo, bo, ids, p
+    )
     lpb = band_to_dense(lpb_band, p, U1)
     lpe = band_to_dense(lpe_band, p, U1 - 1)
     return lpb, lpe

@@ -4,11 +4,11 @@ mesh axis.
 The reference framework has no mixture-of-experts layer (it scales by data
 parallelism only, reference speech_recognition/utils.py:130-156); this is a
 beyond-parity scaling capability completing the parallelism axes (dp / tp /
-pp / sp / ep).  The design is the standard TPU MoE recipe (GShard,
+pp / sp / ep).  The design is the standard static-shape MoE recipe (GShard,
 arXiv:2006.16668; Switch Transformer, arXiv:2101.03961) expressed the
 XLA-native way:
 
-- routing, dispatch and combine are one-hot einsums (MXU work, static
+- routing, dispatch and combine are one-hot einsums (matmul work, static
   shapes — capacity ``C`` bounds the per-expert buffer so nothing is
   data-dependently shaped),
 - expert weights live sharded over the ``expert`` mesh axis; tokens travel

@@ -1,8 +1,8 @@
 """GPipe-style pipeline parallelism over a named mesh axis.
 
-The reference framework scales only by data parallelism (TPUStrategy
+The reference framework scales only by data parallelism (its strategy
 replicas, reference speech_recognition/utils.py:130-156).  This module adds
-the TPU-native third axis: a homogeneous stack of layers (the deep BiRNN
+a third axis: a homogeneous stack of layers (the deep BiRNN
 trunks of DeepSpeech2-style models — reference models/deepspeech.py:40-60 —
 are exactly this shape) is split into S stages laid over a ``pipe`` mesh
 axis, and microbatches stream through the stages GPipe-style

@@ -3,7 +3,7 @@
 Audio frontends are local in time — an STFT frame depends only on its own
 ``frame_length`` samples — so the time axis can shard over a mesh axis with
 each shard borrowing a small "halo" of samples from its right neighbour
-(the standard TPU spatial-partitioning trick; one ``lax.ppermute`` per
+(the standard spatial-partitioning trick; one ``lax.ppermute`` per
 halo side, riding ICI).  This lets a tensor-parallel mesh use its ``model``
 axis for the frontend too, instead of idling it through the feature stage.
 

@@ -21,15 +21,16 @@ parser.add_argument("--batch-size", type=int, default=512)
 parser.add_argument("--beam-size", type=int, default=0, help="not given, use greedy search else beam search with this value as beam size")
 parser.add_argument("--use-tfrecord", action="store_true", help="use tfrecord dataset")
 parser.add_argument("--mixed-precision", action="store_true", help="Use mixed precision")
-parser.add_argument("--device", type=str, default="CPU", help="device to run on")
-parser.add_argument("--on-device-frontend", action=argparse.BooleanOptionalAction, help="compute audio features on device (default: on for TPU tsv runs)")
+parser.add_argument("--device", type=str, default="CPU", choices=["CPU", "GPU"], help="device to run on")
+parser.add_argument("--on-device-frontend", action=argparse.BooleanOptionalAction, help="compute audio features on device (default: on for GPU tsv runs)")
 # fmt: on
 
 
 def main(args: argparse.Namespace):
     logger = get_logger("evaluate")
 
-    from .common import build_variables, compute_dtype, create_model, select_device
+    from ..backend import select_device
+    from .common import build_variables, compute_dtype, create_model
 
     select_device(args.device)
 
@@ -66,7 +67,7 @@ def main(args: argparse.Namespace):
     elif raw_mode:
         # fused on-device frontend: the host only decodes + tokenizes (the
         # per-core host feature ceiling would otherwise cap decode
-        # throughput — PERF.md round-5/7); features fold into the device step
+        # throughput); features fold into the device step
         logger.info(f"[+] Load dataset from {args.dataset_paths}")
         logger.info("[+] Fused on-device audio frontend")
         stream = get_dataset(args.dataset_paths, config.file_format, config.sample_rate, tokenizer)
@@ -104,10 +105,12 @@ def main(args: argparse.Namespace):
 
     from ..data.dataset import quantized_padded_batch
 
-    # static max shapes on TPU; bounded quantized shapes elsewhere (dynamic
-    # per-batch pads would recompile the decode loop for every distinct T)
-    audio_pad = config.max_audio_length if args.device == "TPU" else None
-    token_pad = config.max_token_length if args.device == "TPU" else None
+    # static max shapes on the accelerator; bounded quantized shapes
+    # elsewhere (dynamic per-batch pads would recompile the decode loop for
+    # every distinct T)
+    from .common import decode_pad_lengths
+
+    audio_pad, token_pad = decode_pad_lengths(config, args.device)
 
     # ---------------------------------------------------------------- inference
     logger.info("[+] Start Inference")
@@ -149,10 +152,10 @@ def main(args: argparse.Namespace):
     if decode_mesh is not None:
         logger.info(f"[+] SPMD decode over mesh {dict(zip(decode_mesh.axis_names, decode_mesh.devices.shape))}")
     # keep two decode calls in flight: dispatch for batch N+1 overlaps the
-    # device execution of batch N (pipelined_decode docstring for numbers)
-    from .common import pipelined_decode
+    # device execution of batch N (run/common.py pipelined_decode)
+    from .common import timed_decode
 
-    for batch_output, batch_tokens, n_valid in pipelined_decode(batches, decode_fn):
+    for batch_output, batch_tokens, n_valid in timed_decode(batches, decode_fn, config, raw_mode, logger):
         outputs.extend(zip(batch_output[:n_valid], batch_tokens[:n_valid]))
     logger.info("[+] Ended Inference")
 
@@ -178,4 +181,7 @@ def main(args: argparse.Namespace):
 
 
 if __name__ == "__main__":
+    from ..backend import setup_compile_cache
+
+    setup_compile_cache()
     sys.exit(main(parser.parse_args()))

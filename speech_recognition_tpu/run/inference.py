@@ -20,15 +20,16 @@ parser.add_argument("--sp-model-path", type=str, required=True, help="sentencepi
 parser.add_argument("--batch-size", type=int, default=512)
 parser.add_argument("--beam-size", type=int, default=0, help="not given, use greedy search else beam search with this value as beam size")
 parser.add_argument("--mixed-precision", action="store_true", help="Use mixed precision")
-parser.add_argument("--device", type=str, default="CPU", help="device to run on")
-parser.add_argument("--on-device-frontend", action=argparse.BooleanOptionalAction, help="compute audio features on device (default: on for TPU runs)")
+parser.add_argument("--device", type=str, default="CPU", choices=["CPU", "GPU"], help="device to run on")
+parser.add_argument("--on-device-frontend", action=argparse.BooleanOptionalAction, help="compute audio features on device (default: on for GPU runs)")
 # fmt: on
 
 
 def main(args: argparse.Namespace):
     logger = get_logger("inference")
 
-    from .common import build_variables, compute_dtype, create_model, select_device
+    from ..backend import select_device
+    from .common import build_variables, compute_dtype, create_model
 
     select_device(args.device)
 
@@ -103,7 +104,9 @@ def main(args: argparse.Namespace):
     from ..data.dataset import quantized_padded_batch
 
     # bounded shape set for the jitted decode loop (see run/evaluate.py)
-    audio_pad = config.max_audio_length if args.device == "TPU" else None
+    from .common import decode_pad_lengths
+
+    audio_pad, _ = decode_pad_lengths(config, args.device)
     outputs = []
     from ..data.dataset import prefetch_stream
 
@@ -144,9 +147,9 @@ def main(args: argparse.Namespace):
     if decode_mesh is not None:
         logger.info(f"[+] SPMD decode over mesh {dict(zip(decode_mesh.axis_names, decode_mesh.devices.shape))}")
     # two decode calls in flight (see run/common.py pipelined_decode)
-    from .common import pipelined_decode
+    from .common import timed_decode
 
-    for decoded, _, n_valid in pipelined_decode(batches, decode_fn):
+    for decoded, _, n_valid in timed_decode(batches, decode_fn, config, raw_mode, logger):
         outputs.extend(decoded[:n_valid])
 
     sentences = [tokenizer.detokenize([int(t) for t in out]) for out in outputs]
@@ -161,4 +164,7 @@ def main(args: argparse.Namespace):
 
 
 if __name__ == "__main__":
+    from ..backend import setup_compile_cache
+
+    setup_compile_cache()
     sys.exit(main(parser.parse_args()))

@@ -58,4 +58,7 @@ def main(args: argparse.Namespace):
 
 
 if __name__ == "__main__":
+    from ..backend import setup_compile_cache
+
+    setup_compile_cache()
     sys.exit(main(parser.parse_args()))

@@ -1,6 +1,6 @@
 """Device-side decoding: LAS greedy/beam search and CTC greedy/beam search.
 
-TPU-native counterpart of reference speech_recognition/search.py.  Every
+Counterpart of reference speech_recognition/search.py.  Every
 decoder is a jitted static-shape program: fixed [B, max_len] token buffers
 updated in-place via dynamic_update_slice inside ``lax.while_loop`` /
 ``lax.scan`` (the reference grew tensors per step inside tf.while_loop,
@@ -29,13 +29,12 @@ from .models import LAS, DeepSpeech2
 def topk_inloop(x: jnp.ndarray, k: int):
     """Exact top-k along the last axis for use INSIDE device loops.
 
-    ``jax.lax.top_k`` lowers to a TopK custom call that is fast standalone
-    (~0.07 ms at [1024,16000]) but pathological inside a compiled
-    while/fori body on TPU (measured 0.8-12 ms per iteration at the same
-    shape).  k rounds of (max, first-argmax, mask) fuse into plain VPU
-    passes and cost ~0.46 ms at [1024,16000] k=8 in-loop.  Matches
-    ``jax.lax.top_k`` bitwise, including tie order (both prefer lower
-    indices; verified on random bf16 logits).
+    k rounds of (max, first-argmax, mask) fuse into plain elementwise and
+    reduction passes, which kept a TopK custom call out of the loop body on
+    the machine this was first tuned for; whether ``jax.lax.top_k`` is
+    faster in the GPU loop is an open A/B.  Matches ``jax.lax.top_k``
+    bitwise, including tie order (both prefer lower indices; verified on
+    random bf16 logits).
 
     :param x: [..., V]; any float dtype
     :return: (values [..., k] same dtype, indices [..., k] int32)
@@ -53,12 +52,6 @@ def topk_inloop(x: jnp.ndarray, k: int):
     return jnp.concatenate(vals, -1), jnp.concatenate(idxs, -1)
 
 
-# Note: a packed-int32 variant (bf16 bits + index in one word, one max pass
-# per round) was measured WORSE in the real beam loop (149 vs 124 ms batch
-# decode) — int32 doubles the bytes per VPU pass, cancelling the saved
-# passes.  Keep the plain masked-argmax rounds.
-
-
 class LASSearcher:
     """Greedy / beam search over a trained LAS model (reference search.py:6-209)."""
 
@@ -70,8 +63,6 @@ class LASSearcher:
         self.eos_id = eos_id
         self.pad_id = pad_id
         self._greedy = jax.jit(self._greedy_impl)
-        # alpha/beta static too: the Pallas beam kernel bakes the length
-        # penalty into its compiled body (callers pass python floats)
         self._beam = jax.jit(self._beam_impl, static_argnums=(1, 2, 3))
 
     # ------------------------------------------------------------------ common
@@ -79,24 +70,6 @@ class LASSearcher:
         enc_out, mask, *states = self.model.apply(self.variables, audio_input, method=LAS.encode)
         keys = self.model.apply(self.variables, enc_out, method=LAS.project_keys)
         return enc_out, keys, mask, tuple(states)
-
-    def _decoder_params(self):
-        """Raw decoder parameter arrays (model compute dtype) for the fused
-        Pallas search kernels; paths match the checkpoint layout."""
-        p = self.variables["params"]["attend_and_speller"]
-        dt = self.model.dtype
-        emb = p["embedding"]["embedding"].astype(dt)
-        qw = p["attention"]["query_weight"]["kernel"].astype(dt)
-        qb = p["attention"]["query_weight"]["bias"].astype(dt)
-        ks, rs, bs = [], [], []
-        for i in range(self.model.num_decoder_layers):
-            cell = p[f"decoder_layer{i}"]
-            ks.append(cell["kernel"].astype(dt))
-            rs.append(cell["recurrent_kernel"].astype(dt))
-            bs.append(cell["bias"].astype(dt))
-        vw = p["feedforward"]["kernel"].astype(dt)
-        vb = p["feedforward"]["bias"].astype(jnp.float32)
-        return emb, qw, qb, tuple(ks), tuple(rs), tuple(bs), vw, vb
 
     def _step(self, enc_out, keys, tokens, mask, states):
         return self.model.apply(self.variables, enc_out, keys, tokens, mask, states, method=LAS.decode_step)
@@ -108,13 +81,6 @@ class LASSearcher:
             self.variables, enc_out, keys, tokens, mask, states, method=LAS.decode_step_beam
         )
 
-    def _step_beam_hidden(self, enc_out, keys, tokens, mask, states):
-        """Beam step stopping before the vocab projection (fused
-        projection+top-k+logsumexp Pallas path)."""
-        return self.model.apply(
-            self.variables, enc_out, keys, tokens, mask, states, method=LAS.decode_step_beam_hidden
-        )
-
     # ------------------------------------------------------------------ greedy
     def greedy_search(self, audio_input) -> Tuple[jnp.ndarray, jnp.ndarray]:
         """:return: (tokens [B, max_token_length], perplexity [B])."""
@@ -124,27 +90,6 @@ class LASSearcher:
         B = audio_input.shape[0]
         L = self.max_token_length
         enc_out, keys, mask, states = self._encode(audio_input)
-
-        # fused Pallas decode loop (ops/pallas/search_kernel.py): all decode
-        # operands VMEM-resident across the steps; identical outputs
-        from .ops.pallas.search_kernel import greedy_pallas_supported, greedy_search_pallas
-        from .ops.pallas.vocab_pad import pad_vocab_proj, pad_vocab_rows
-
-        emb, qw, qb, ks, rs, bs, vw, vb = self._decoder_params()
-        # lane-align an unaligned vocab (kspon 8K): zero embedding rows are
-        # never indexed (argmax can't pick a -1e30 pad logit), so outputs
-        # are identical (ops/pallas/vocab_pad.py)
-        emb_p = pad_vocab_rows(emb)
-        vw_p, vb_p = pad_vocab_proj(vw, vb)
-        if (
-            L > 1
-            and len(states) == 2
-            and greedy_pallas_supported(keys, enc_out, emb_p, vw_p, ks, self.model.rnn_type)
-        ):
-            return greedy_search_pallas(
-                keys, enc_out, mask, qw, qb, emb_p, vw_p, vb_p, ks, rs, bs,
-                states[0], states[1], L, self.bos_id, self.eos_id, self.pad_id,
-            )
 
         tokens = jnp.full((B, L), self.pad_id, jnp.int32).at[:, 0].set(self.bos_id)
         is_ended = jnp.zeros((B,), bool)
@@ -203,10 +148,8 @@ class LASSearcher:
         # Decoder states are per-beam ([B*K, H], beam-major rows); the big
         # encoder operands are NOT tiled — step_beam attends all K beams
         # over one copy (the reference tiles them K-fold, search.py:141-153,
-        # which re-streams K copies of keys/values from HBM every step).
+        # which re-streams K copies of keys/values every step).
         # SRT_BEAM_UNTILED=0 restores the tiled layout for A/B.
-        import os
-
         untiled = os.environ.get("SRT_BEAM_UNTILED", "1") == "1"
         if not untiled:
             enc_out_t, keys_t, mask_t = tile(enc_out), tile(keys), tile(mask)
@@ -227,49 +170,6 @@ class LASSearcher:
             perplexity = jnp.exp(logp) ** (-1.0 / lens.astype(jnp.float32))
             return tokens, perplexity
 
-        # ---- whole-loop Pallas mega-kernel (ops/pallas/beam_kernel.py):
-        # the entire decode loop as one pallas_call with VMEM-resident
-        # operands.  SRT_PALLAS_BEAM=0 reverts to the XLA while_loop.
-        from .ops.pallas.beam_kernel import beam_pallas_supported, beam_search_pallas
-
-        if (
-            untiled
-            and len(states_t) == 2
-            and beam_pallas_supported(
-                keys, enc_out, self.variables["params"]["attend_and_speller"]["embedding"]["embedding"],
-                self.variables["params"]["attend_and_speller"]["feedforward"]["kernel"],
-                [self.variables["params"]["attend_and_speller"][f"decoder_layer{i}"]["kernel"]
-                 for i in range(self.model.num_decoder_layers)],
-                self.model.rnn_type, K, L,
-            )
-        ):
-            emb, qw, qb, ks, rs, bs, vw_full, vb_full = self._decoder_params()
-            toks, logp = beam_search_pallas(
-                keys, enc_out, mask, qw, qb, emb, vw_full,
-                vb_full.astype(self.model.dtype),
-                ks, rs, bs, states_t[0], states_t[1], tokens, log_perplexity,
-                L, self.bos_id, self.eos_id, self.pad_id, float(alpha), float(beta),
-            )
-            return finish(toks, logp)
-
-        # ---- fused vocab-projection + top-k + logsumexp Pallas kernel for
-        # the loop body (the in-loop XLA alternatives are measured slower;
-        # see ops/pallas/topk_kernel.py).  SRT_PALLAS_BEAM_TOPK=0 reverts.
-        from .ops.pallas.topk_kernel import vocab_topk_pallas, vocab_topk_pallas_supported
-
-        vw = vb = None
-        if untiled and os.environ.get("SRT_PALLAS_BEAM_TOPK", "1") == "1":
-            from .ops.pallas.vocab_pad import pad_vocab_proj
-
-            p = self.variables["params"]["attend_and_speller"]["feedforward"]
-            # lane-align an unaligned vocab (kspon 8K): -1e30 pad columns
-            # never enter the top-k (ops/pallas/vocab_pad.py)
-            vw_p, vb_p = pad_vocab_proj(p["kernel"], p["bias"])
-            hid_probe = jax.ShapeDtypeStruct((B * K, vw_p.shape[0]), self.model.dtype)
-            if vocab_topk_pallas_supported(hid_probe, vw_p, K):
-                vw = vw_p.astype(self.model.dtype)
-                vb = vb_p.astype(self.model.dtype)
-
         def cond(carry):
             step, tokens, logp, states = carry
             has_eos = jnp.any(tokens == self.eos_id, axis=-1)
@@ -278,21 +178,16 @@ class LASSearcher:
         def body(carry):
             step, tokens, logp, states = carry
             last = jax.lax.dynamic_index_in_dim(tokens.reshape(B * K, L), step - 1, axis=1, keepdims=False)
-            if vw is not None:
-                hidden, new_states = self._step_beam_hidden(enc_out, keys, last.reshape(B, K), mask, states)
-                top_raw, cand_tokens, lse = vocab_topk_pallas(hidden, vw, vb, K)
-                step_lp = top_raw - lse[:, None]  # [B*K, K]
+            if untiled:
+                logits, new_states = self._step_beam(enc_out, keys, last.reshape(B, K), mask, states)
             else:
-                if untiled:
-                    logits, new_states = self._step_beam(enc_out, keys, last.reshape(B, K), mask, states)
-                else:
-                    logits, new_states = self._step(enc_out_t, keys_t, last, mask_t, states)
-                # top-k on the RAW logits, normalizing only the K winners
-                # (log_softmax is monotone per row, so the selection is
-                # identical but the [B*K,V] normalized tensor is never formed)
-                lse = jax.nn.logsumexp(logits.astype(jnp.float32), axis=-1, keepdims=True)
-                top_raw, cand_tokens = topk_inloop(logits, K)
-                step_lp = top_raw.astype(jnp.float32) - lse  # [B*K, K]
+                logits, new_states = self._step(enc_out_t, keys_t, last, mask_t, states)
+            # top-k on the RAW logits, normalizing only the K winners
+            # (log_softmax is monotone per row, so the selection is
+            # identical but the [B*K,V] normalized tensor is never formed)
+            lse = jax.nn.logsumexp(logits.astype(jnp.float32), axis=-1, keepdims=True)
+            top_raw, cand_tokens = topk_inloop(logits, K)
+            step_lp = top_raw.astype(jnp.float32) - lse  # [B*K, K]
             step_lp = step_lp.reshape(B, K, K)
             cand_tokens = cand_tokens.reshape(B, K, K)
 
@@ -523,8 +418,7 @@ class TransducerSearcher:
     are out, so it terminates in <= T' + L iterations per lane).
 
     The prediction-net steps run through ops/rnn.cell_step on raw
-    parameter arrays — the same stepwise-decode pattern as LASSearcher's
-    fused kernels (search.py:83-100 above).
+    parameter arrays.
     """
 
     def __init__(self, model, variables, max_token_length: int, bos_id: int,
@@ -646,7 +540,7 @@ class TransducerSearcher:
 
         Per encoder frame, ``max_symbols`` counts JOINT EVALUATIONS, not
         emitted labels: each of the ``max_symbols`` rounds scores the joint
-        once ([B, K, V] — one MXU matmul) and moves blank/EOS continuations
+        once ([B, K, V] — one matmul) and moves blank/EOS continuations
         into the frame's *done* pool, but only the first ``max_symbols - 1``
         rounds also keep the top-K label extensions as the next *active*
         pool — the final round is blank/EOS-only, so at most
@@ -680,63 +574,12 @@ class TransducerSearcher:
         dt = enc_proj.dtype
         NEG = jnp.float32(-1e30)
 
-        # ---- fused vocab-projection + top-k + logsumexp kernel for the
-        # joint rounds: the in-scan lax.top_k over V=16K dominated TSD cost
-        # (7.1 s/call at beam 4 — PERF round-14; same pathology the LAS
-        # beam hit, ops/pallas/topk_kernel.py docstring).  Over-fetches
-        # k_ext = fanout+3 winners so blank/eos/pad can be masked out
-        # post-hoc.  SRT_FUSED_TSD=0 reverts to the XLA path.
-        from .ops.pallas.topk_kernel import vocab_topk_pallas, vocab_topk_pallas_supported
-
         kv = min(K, self.model.vocab_size)  # label fanout per hypothesis
-        k_ext = kv + 3
-        fast = None
-        Jp = (J + 127) // 128 * 128  # kernel wants a 128-multiple H; the
-        # joint dim is 320, so hid/W zero-pad to 384 (same logits)
-        if os.environ.get("SRT_FUSED_TSD", "1") == "1" and k_ext <= 16:
-            from .ops.pallas.vocab_pad import pad_vocab_proj
-
-            hid_probe = jax.ShapeDtypeStruct((B * K, Jp), dt)
-            # H-pad (zero rows, joint dim 320 -> 384) then lane-align an
-            # unaligned vocab (kspon 8K; -1e30 pad columns never enter the
-            # top-k — ops/pallas/vocab_pad.py)
-            wo_p, bo_p = pad_vocab_proj(jnp.pad(wo, ((0, Jp - J), (0, 0))), bo)
-            if vocab_topk_pallas_supported(hid_probe, wo_p, k_ext):
-                be = jnp.array([self.model.blank_index, self.eos_id])
-                fast = (wo_p, bo_p, wo[:, be].astype(dt), bo[be].astype(jnp.float32))
 
         def joint_scores(enc_t, c_g):
             """One joint evaluation for every live hypothesis:
             (blank_lp, eos_lp, label top-k lp, label top-k ids)."""
             hid = jnp.tanh(enc_t[:, None, :] + c_g)  # [B, K, J] dt
-            if fast is not None:
-                wo_pad, bo_pad, wo_be, bo_be = fast
-                rows = hid.reshape(B * K, J)
-                rows_p = jnp.pad(rows, ((0, 0), (0, Jp - J))) if Jp != J else rows
-                from .ops.pallas.topk_kernel import round_bf16
-
-                vals, idx, lse_r = vocab_topk_pallas(rows_p, wo_pad, bo_pad, k_ext)
-                lse = lse_r.reshape(B, K)
-                # match the kernel's bf16 logit rounding exactly (it computes
-                # round_bf16(round_bf16(dot) + bias)) so blank-vs-label
-                # ranking can't flip on near-ties between the two paths
-                zbe = round_bf16(
-                    round_bf16(
-                        jax.lax.dot_general(
-                            rows, wo_be, (((1,), (0,)), ((), ())),
-                            preferred_element_type=jnp.float32,
-                        )
-                    )
-                    + bo_be
-                ).reshape(B, K, 2)
-                blank_lp = zbe[..., 0] - lse
-                eos_lp = zbe[..., 1] - lse
-                lab_lp = vals.reshape(B, K, k_ext) - lse[:, :, None]
-                ids_k = idx.reshape(B, K, k_ext)
-                ban = (ids_k == self.model.blank_index) | (ids_k == self.eos_id)
-                if self.pad_id != self.model.blank_index:
-                    ban = ban | (ids_k == self.pad_id)
-                return blank_lp, eos_lp, jnp.where(ban, NEG, lab_lp), ids_k
             z = hid @ wo + bo  # [B, K, V] f32
             lsm = jax.nn.log_softmax(z.astype(jnp.float32), axis=-1)
             lab = lsm.at[..., self.model.blank_index].set(NEG)
@@ -818,7 +661,7 @@ class TransducerSearcher:
                 # label extensions -> new active pool (top_lp/top_id hold
                 # the per-hypothesis label candidates, blank/eos/pad masked)
                 can_lab = live & (c_u < L)
-                kw = top_lp.shape[-1]  # kv (XLA) or k_ext (fused kernel)
+                kw = top_lp.shape[-1]  # kv
                 lab_sc = jnp.where(can_lab[:, :, None], c_score[:, :, None] + top_lp, NEG)
                 n_score, flat = jax.lax.top_k(lab_sc.reshape(B, K * kw), K)
                 parent = flat // kw

@@ -1,18 +1,20 @@
-"""Checkpoint IO (Orbax), local and gs://.
+"""Checkpoint IO, local and gs://.
 
 Replaces Keras ModelCheckpoint/load_weights (reference run/train.py:152-154,
 208-212; run/evaluate.py:78).  Checkpoints are weights-only pytrees
 {'params', 'batch_stats'} saved per epoch under templated directory names,
-mirroring the reference's naming scheme.  A separate converter
-(speech_recognition_tpu/compat/tf_checkpoint.py) loads the reference's TF2
-checkpoints into the same pytree layout.
+mirroring the reference's naming scheme.  Each save is one directory holding
+``weights.npz``: every leaf under its '/'-joined tree path
+(``params/listener/conv1/kernel``), so a checkpoint is readable with numpy
+alone.  A separate converter (speech_recognition_tpu/compat/tf_checkpoint.py)
+loads the reference's TF2 checkpoints into the same pytree layout.
 
 gs:// parity: the reference trained with ``--output-path gs://...`` and
 restored checkpoints remotely through tf.io.gfile (reference
 run/train.py:208-212, run/evaluate.py:78, utils.py:116-120).  Here remote
-checkpoints stage through a local temporary directory: save writes the
-orbax tree locally then uploads it file-by-file via utils.io (native GCS
-JSON-API client, no TF); restore downloads the tree then restores locally.
+checkpoints stage through a local temporary directory: save writes the tree
+locally then uploads it file-by-file via utils.io (native GCS JSON-API
+client, no TF); restore downloads the tree then restores locally.
 ``latest_checkpoint`` lists either os.listdir (local) or the object store
 (remote), ordering by the epoch number embedded in the templated name
 (``model-{epoch}epoch...``) with mtime/object-updated as the fallback, so
@@ -23,7 +25,7 @@ import os
 import re
 import shutil
 import tempfile
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import jax
 import numpy as np
@@ -31,41 +33,80 @@ import numpy as np
 from ..utils import io as uio
 
 _EPOCH_RX = re.compile(r"model-(\d+)epoch")
+WEIGHTS_FILE = "weights.npz"
 
 
-def _checkpointer():
-    import orbax.checkpoint as ocp
+def _flatten(tree, prefix="", leaf=np.asarray) -> Dict[str, Any]:
+    out = {}
+    for key, value in tree.items():
+        if "/" in str(key):
+            raise ValueError(f"checkpoint keys may not contain '/': {key!r}")
+        path = f"{prefix}{key}"
+        if isinstance(value, dict):
+            out.update(_flatten(value, path + "/", leaf))
+        else:
+            out[path] = leaf(value)
+    return out
 
-    return ocp.PyTreeCheckpointer()
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, value in flat.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def _write(directory: str, variables: Any) -> None:
+    flat = _flatten(variables)
+    # numpy's npz has no bfloat16: such leaves are stored as float32 and
+    # cast back to the template's dtype on restore
+    flat = {k: v.astype(np.float32) if v.dtype.kind == "V" or v.dtype.name == "bfloat16" else v
+            for k, v in flat.items()}
+    os.makedirs(directory, exist_ok=True)
+    tmp = os.path.join(directory, WEIGHTS_FILE + ".tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+    os.replace(tmp, os.path.join(directory, WEIGHTS_FILE))
+
+
+def _barrier(name: str) -> None:
+    if jax.process_count() > 1:
+        from jax.experimental import multihost_utils
+
+        multihost_utils.sync_global_devices(name)
 
 
 def save_weights(path: str, variables: Any) -> None:
     """Save {'params': ..., 'batch_stats': ...} to ``path`` (a directory,
     local or gs://).
 
-    Multi-process: EVERY process must call this (orbax synchronizes across
-    processes inside ``save`` and only the primary host touches the
-    filesystem; a process-0-only call blocks the primary at the barrier
-    forever — pinned by tests/test_multihost_process.py).  For gs:// paths
-    the upload itself is primary-host-only on top of that.
+    Multi-process: EVERY process must call this.  Only process 0 writes; the
+    call ends in a cross-process barrier, so no process reads the checkpoint
+    before it is complete.  Arrays must be host-addressable (the train CLI
+    gathers sharded leaves first).
     """
-    variables = jax.tree_util.tree_map(np.asarray, variables)
-    if uio.is_remote(path):
-        staging = tempfile.mkdtemp(prefix="srt-ckpt-save-")
-        try:
-            local = os.path.join(staging, "ckpt")
-            _checkpointer().save(local, variables, force=True)
-            if jax.process_index() == 0:
+    if jax.process_index() == 0:
+        if uio.is_remote(path):
+            staging = tempfile.mkdtemp(prefix="srt-ckpt-save-")
+            try:
+                local = os.path.join(staging, "ckpt")
+                _write(local, variables)
                 uio.copy_tree(local, path)
-        finally:
-            shutil.rmtree(staging, ignore_errors=True)
-        return
-    _checkpointer().save(os.path.abspath(path), variables, force=True)
+            finally:
+                shutil.rmtree(staging, ignore_errors=True)
+        else:
+            _write(os.path.abspath(path), variables)
+    _barrier("srt-save-weights")
 
 
 def restore_weights(path: str, template: Optional[Any] = None) -> Any:
-    """Restore a weights pytree from a local or gs:// directory; with
-    ``template``, restores with matching structure/dtypes (recommended)."""
+    """Restore a weights pytree from a local or gs:// directory.  With
+    ``template``, the tree must have the template's structure and shapes,
+    and leaves take the template's dtypes."""
     if uio.is_remote(path):
         staging = tempfile.mkdtemp(prefix="srt-ckpt-restore-")
         try:
@@ -74,10 +115,20 @@ def restore_weights(path: str, template: Optional[Any] = None) -> Any:
             return restore_weights(local, template)
         finally:
             shutil.rmtree(staging, ignore_errors=True)
-    path = os.path.abspath(path)
-    if template is not None:
-        return _checkpointer().restore(path, item=jax.tree_util.tree_map(np.asarray, template))
-    return _checkpointer().restore(path)
+    with np.load(os.path.join(os.path.abspath(path), WEIGHTS_FILE)) as data:
+        flat = {k: data[k] for k in data.files}
+    if template is None:
+        return _unflatten(flat)
+    expected = _flatten(template, leaf=lambda x: jax.ShapeDtypeStruct(np.shape(x), x.dtype))
+    missing = sorted(set(expected) - set(flat))
+    extra = sorted(set(flat) - set(expected))
+    if missing or extra:
+        raise ValueError(f"checkpoint {path} does not match the model: missing {missing[:5]}, unexpected {extra[:5]}")
+    for key, ref in expected.items():
+        if flat[key].shape != ref.shape:
+            raise ValueError(f"checkpoint {path}: {key} has shape {flat[key].shape}, the model wants {ref.shape}")
+        flat[key] = flat[key].astype(ref.dtype)
+    return _unflatten(flat)
 
 
 def _pick_latest(entries: List[tuple]) -> Optional[str]:

@@ -7,20 +7,30 @@ a multi-device mesh the same step runs SPMD: batch sharded over 'data',
 gradient psums inserted automatically by XLA.
 """
 
-from typing import Any, Callable, Dict, Optional, Tuple
+import dataclasses
+import functools
+from typing import Any, Callable, Optional
 
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 
 
-class TrainState(struct.PyTreeNode):
+@functools.partial(
+    jax.tree_util.register_dataclass,
+    data_fields=["step", "params", "batch_stats", "opt_state"],
+    meta_fields=["tx"],
+)
+@dataclasses.dataclass(frozen=True)
+class TrainState:
     step: jnp.ndarray
     params: Any
     batch_stats: Any
     opt_state: Any
-    tx: optax.GradientTransformation = struct.field(pytree_node=False)
+    tx: optax.GradientTransformation
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
     @classmethod
     def create(cls, variables, tx):
@@ -56,11 +66,10 @@ def make_train_step(
     """
 
     # LAS can emit scan-native time-major [N,B,V] logits, skipping two
-    # 0.5 GB vocab-space transposes per step (fwd + VJP); the loss/metric
-    # fns are layout-agnostic, so only y_true needs the (tiny) transpose.
+    # vocab-space transposes per step (fwd + VJP); the loss/metric fns are
+    # layout-agnostic, so only y_true needs the (tiny) transpose.
     time_major = bool(getattr(model, "logits_time_major_supported", False))
     apply_kwargs = {"time_major_logits": True} if time_major else {}
-    fused = _fused_loss_wanted(model, time_major, metric_fns)
 
     def train_step(state: TrainState, model_input, y_true, rng):
         rng_names = ["dropout", "frontend"] + (
@@ -80,18 +89,11 @@ def make_train_step(
             mutable = (["batch_stats"] if state.batch_stats else []) + ["aux_loss"]
             if state.batch_stats:
                 variables["batch_stats"] = state.batch_stats
-            if fused:
-                (hid, updates) = model.apply(
-                    variables, model_input, training=True, rngs=rngs, mutable=mutable,
-                    method="hidden_states",
-                )
-                loss, outputs = model.loss_from_hidden(params, hid, y_true, loss_fn)
-            else:
-                (outputs, updates) = model.apply(
-                    variables, model_input, training=True, rngs=rngs, mutable=mutable,
-                    **apply_kwargs,
-                )
-                loss = loss_fn(y_true, outputs)
+            (outputs, updates) = model.apply(
+                variables, model_input, training=True, rngs=rngs, mutable=mutable,
+                **apply_kwargs,
+            )
+            loss = loss_fn(y_true, outputs)
             for leaf in jax.tree_util.tree_leaves(updates.get("aux_loss", {})):
                 loss = loss + jnp.sum(leaf)
             new_batch_stats = updates.get("batch_stats", state.batch_stats)
@@ -108,48 +110,15 @@ def make_train_step(
             batch_stats=new_batch_stats,
             opt_state=new_opt_state,
         )
-        metrics = {"loss": loss}
-        _add_metrics(metrics, metric_fns, y_true, outputs, fused, getattr(model, "pad_id", 0))
+        metrics = {"loss": loss, "grad_norm": optax.global_norm(grads)}
+        _add_metrics(metrics, metric_fns, y_true, outputs)
         return new_state, metrics
 
     return jax.jit(train_step, donate_argnums=(0,))
 
 
-def _fused_loss_wanted(model, time_major: bool, metric_fns=()) -> bool:
-    """Route the step through model.hidden_states + model.loss_from_hidden
-    (the Pallas fused-loss path with an identical-math XLA fallback).
-    LAS's CE pair (SRT_FUSED_CE) assumes time-major hidden states; DS2's
-    CTC pair is gated by SRT_FUSED_CTC."""
-    import os
-
-    if getattr(model, "fused_ce_supported", False):
-        return time_major and os.environ.get("SRT_FUSED_CE", "1") == "1"
-    if getattr(model, "fused_loss_supported", False):
-        # this route computes loss ONLY (outputs None): a model configured
-        # with logits-consuming metrics must take the plain path instead
-        return not metric_fns and os.environ.get("SRT_FUSED_CTC", "1") == "1"
-    return False
-
-
-def _add_metrics(metrics, metric_fns, y_true, outputs, fused, pad_id=0):
-    """Streaming metric sums.  With the fused CE path ``outputs`` is the
-    argmax preds [N,B]; accuracy is computed from them directly (identical
-    to measure.sparse_categorical_accuracy on full logits).  ``outputs``
-    is None when the model computes loss only (DS2 fused CTC;
-    _fused_loss_wanted guarantees no metric_fns on that route)."""
-    if outputs is None:
-        return
-    if fused and outputs.ndim == y_true.ndim:
-        for name, fn in metric_fns:
-            # the mask index each metric was built with, falling back to the
-            # model's pad id — keeps the preds-based accuracy identical to
-            # fn(y_true, full_logits) even for non-default ignore_index
-            mask = y_true != getattr(fn, "ignore_index", pad_id)
-            metrics[f"{name}_sum"] = jnp.sum(
-                jnp.where(mask, (outputs == y_true).astype(jnp.float32), 0.0)
-            )
-            metrics[f"{name}_count"] = jnp.sum(mask.astype(jnp.float32))
-        return
+def _add_metrics(metrics, metric_fns, y_true, outputs):
+    """Streaming metric sums ``{name}_sum`` / ``{name}_count``."""
     for name, fn in metric_fns:
         correct, count = fn(y_true, outputs)
         metrics[f"{name}_sum"] = correct
@@ -161,21 +130,16 @@ def make_eval_step(model, loss_fn: Callable, metric_fns=(), preprocess: Optional
 
     time_major = bool(getattr(model, "logits_time_major_supported", False))
     apply_kwargs = {"time_major_logits": True} if time_major else {}
-    fused = _fused_loss_wanted(model, time_major, metric_fns)
 
     def eval_step(state: TrainState, model_input, y_true):
         if preprocess is not None:
             model_input = preprocess(model_input, None)
         if time_major:
             y_true = jnp.swapaxes(y_true, 0, 1)
-        if fused:
-            hid = model.apply(state.variables, model_input, training=False, method="hidden_states")
-            loss, outputs = model.loss_from_hidden(state.params, hid, y_true, loss_fn)
-        else:
-            outputs = model.apply(state.variables, model_input, training=False, **apply_kwargs)
-            loss = loss_fn(y_true, outputs)
+        outputs = model.apply(state.variables, model_input, training=False, **apply_kwargs)
+        loss = loss_fn(y_true, outputs)
         metrics = {"loss": loss}
-        _add_metrics(metrics, metric_fns, y_true, outputs, fused, getattr(model, "pad_id", 0))
+        _add_metrics(metrics, metric_fns, y_true, outputs)
         return metrics
 
     return jax.jit(eval_step)

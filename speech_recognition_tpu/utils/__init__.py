@@ -1,6 +1,6 @@
 """Runtime utilities: logging, seeding, edit distance, device selection.
 
-TPU-native counterpart of reference speech_recognition/utils.py.  The
+Counterpart of reference speech_recognition/utils.py.  The
 tf.distribute strategy layer (reference utils.py:130-156) is replaced by the
 mesh utilities in :mod:`speech_recognition_tpu.parallel`.
 """

@@ -11,7 +11,7 @@ Auth resolution, in order:
   1. ``STORAGE_EMULATOR_HOST`` — anonymous, points at an emulator/fake
      (also how the test suite drives this client end-to-end).
   2. ``GCS_OAUTH_TOKEN`` — an explicit bearer token.
-  3. GCE/TPU-VM metadata server (the normal production path on TPU VMs).
+  3. GCE VM metadata server (the normal production path on cloud VMs).
   4. Application-default-credentials *authorized user* JSON
      (``GOOGLE_APPLICATION_CREDENTIALS`` or the gcloud well-known file):
      refresh-token grant, no crypto needed.  Service-account keys need
@@ -117,7 +117,7 @@ def _fetch_token() -> Optional[Tuple[str, float]]:
     env = os.environ.get("GCS_OAUTH_TOKEN")
     if env:
         return env, time.time() + 3600
-    # metadata server (TPU VM / GCE)
+    # metadata server (GCE VM)
     try:
         req = urllib.request.Request(_METADATA_TOKEN_URL, headers={"Metadata-Flavor": "Google"})
         with urllib.request.urlopen(req, timeout=2) as resp:

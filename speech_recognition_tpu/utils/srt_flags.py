@@ -6,9 +6,9 @@ which compiled program actually runs — they are configuration — so the
 train CLI dumps their effective values into the run's ``train_configs.txt``
 alongside the YAML-derived configs, mirroring how the reference copied all
 of its configs into the output dir for reproducibility
-(/root/reference/speech_recognition/run/train.py:53-60).
+(reference speech_recognition/run/train.py:53-60).
 
-``tests/test_fastpath_gates.py::test_flag_registry_covers_sources`` greps
+``tests/test_utils.py::test_flag_registry_covers_sources`` greps
 the package for ``SRT_`` tokens and fails when a new flag is introduced
 without a registry entry, so this table cannot silently go stale.
 """
@@ -18,36 +18,23 @@ from typing import Dict
 
 # flag -> shipped default ("" = unset / auto)
 SRT_FLAG_DEFAULTS: Dict[str, str] = {
-    # fused Pallas fast paths (default on)
-    "SRT_FUSED_CE": "1",
-    "SRT_FUSED_CTC": "1",
-    "SRT_FUSED_JOINT": "1",
-    "SRT_FUSED_TSD": "1",
-    "SRT_FUSED_MHSA": "1",
+    # plain-JAX fast paths (default on)
     "SRT_FAST_DROPOUT": "1",
     "SRT_MATMUL_STFT": "1",
-    "SRT_PALLAS_SEARCH": "1",
-    "SRT_PALLAS_BEAM_TOPK": "1",
-    "SRT_PALLAS_DECODER": "1",
-    "SRT_PALLAS_DECODER_BWD": "1",
     # scan/VJP structure
     "SRT_DECODER_CUSTOM_VJP": "1",
     "SRT_LSTM_CUSTOM_VJP": "1",
-    "SRT_DEC_UNROLL": "",  # auto: 4 (ops/decoder.py) / 8 (models/las.py) on TPU
+    "SRT_DEC_UNROLL": "1",
     "SRT_RNN_UNROLL": "1",
     "SRT_RNN_REMAT": "0",
     # layout / experiment levers
     "SRT_BEAM_UNTILED": "1",
-    "SRT_PALLAS_BEAM": "0",
-    "SRT_PALLAS_RNN": "0",
-    "SRT_S2D_CONV": "1",
+    "SRT_S2D_CONV": "0",
     "SRT_PDX_CONV": "0",
     "SRT_SPMD_SAFE_DWCONV": "",  # auto: safe when >1 device visible
-    "SRT_JOINT_LANES": "128",
-    # host pipeline / IO / tests
+    # host pipeline / IO
     "SRT_HOST_BF16": "1",
     "SRT_GCS_NATIVE": "1",
-    "SRT_PALLAS_FORCE": "",
 }
 
 

@@ -117,34 +117,34 @@ def test_train_config_bad_policy():
 
 def test_decode_cli_frontend_auto():
     """Decode CLIs resolve the same tri-state as TrainConfig: None = auto
-    (TPU tsv only); explicit flag wins; never for tfrecord."""
+    (GPU tsv only); explicit flag wins; never for tfrecord."""
     from speech_recognition_tpu.run.common import use_raw_frontend
 
-    assert use_raw_frontend(None, "TPU", False) is True
+    assert use_raw_frontend(None, "GPU", False) is True
     assert use_raw_frontend(None, "CPU", False) is False
-    assert use_raw_frontend(None, "TPU", True) is False
-    assert use_raw_frontend(False, "TPU", False) is False
+    assert use_raw_frontend(None, "GPU", True) is False
+    assert use_raw_frontend(False, "GPU", False) is False
     assert use_raw_frontend(True, "CPU", False) is True
-    assert use_raw_frontend(True, "TPU", True) is False
+    assert use_raw_frontend(True, "GPU", True) is False
 
 
 def test_train_config_on_device_frontend_auto():
-    """None = auto: ON only for TPU tsv runs; explicit values always win
-    (TPU-first default, configs/train_config.py)."""
+    """None = auto: ON only for GPU tsv runs; explicit values always win
+    (accelerator default, configs/train_config.py)."""
     assert TrainConfig(**_train_kwargs()).on_device_frontend is False  # CPU
     assert (
-        TrainConfig(**_train_kwargs(device="TPU", max_over_policy="slice")).on_device_frontend
+        TrainConfig(**_train_kwargs(device="GPU", max_over_policy="slice")).on_device_frontend
         is True
     )
     assert (
         TrainConfig(
-            **_train_kwargs(device="TPU", max_over_policy="slice", use_tfrecord=True)
+            **_train_kwargs(device="GPU", max_over_policy="slice", use_tfrecord=True)
         ).on_device_frontend
         is False
     )
     assert (
         TrainConfig(
-            **_train_kwargs(device="TPU", max_over_policy="slice", on_device_frontend=False)
+            **_train_kwargs(device="GPU", max_over_policy="slice", on_device_frontend=False)
         ).on_device_frontend
         is False
     )
@@ -153,11 +153,10 @@ def test_train_config_on_device_frontend_auto():
 
 def test_train_config_frontend_auto_off_under_time_warp(tmp_path):
     """Auto keeps the frontend OFF when SpecAugment time warp is enabled
-    (device warp gather measured 290 ms/batch — PERF.md round-7); explicit
-    True still forces it."""
+    (the warp gather stays on the host); explicit True still forces it."""
     import yaml
 
-    base = _train_kwargs(device="TPU", max_over_policy="slice")
+    base = _train_kwargs(device="GPU", max_over_policy="slice")
     with open(base["data_config"]) as f:
         data = yaml.safe_load(f)
     data["spec_augment"]["enable"] = True

@@ -133,7 +133,7 @@ def test_ctc_loss_ignores_padded_rows():
     labels = jnp.array([[5, 6, 7, 0, 0], [3, 4, 0, 0, 0]], jnp.int32)
     loss_real = ctc_loss(labels, logits, blank_index=14)
 
-    # pad the batch with two all-zero rows (short final batch on TPU)
+    # pad the batch with two all-zero rows (short final batch, static shapes)
     logits_pad = jnp.concatenate([logits, jnp.zeros((2, 20, 30))])
     labels_pad = jnp.concatenate([labels, jnp.zeros((2, 5), jnp.int32)])
     loss_pad = ctc_loss(labels_pad, logits_pad, blank_index=14)

@@ -173,7 +173,7 @@ def test_inference_cli(tmp_path, model_config):
 )
 def test_evaluate_cli_on_device_frontend(tmp_path, model_config, beam):
     """Raw-PCM decode path: host only decodes+tokenizes, the fused frontend
-    (ops/frontend.py) featurizes on device ahead of the searcher (the TPU
+    (ops/frontend.py) featurizes on device ahead of the searcher (the GPU
     tsv default; forced on here to drive it on CPU)."""
     from speech_recognition_tpu.run.evaluate import main, parser
 

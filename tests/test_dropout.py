@@ -9,7 +9,7 @@ same forward math, and module-level rng independence between sites.
 import jax
 import jax.numpy as jnp
 import numpy as np
-import flax.linen as nn
+from speech_recognition_tpu import nn
 import pytest
 
 from speech_recognition_tpu.ops.dropout import FastDropout, hash_dropout, hash_uniform

@@ -70,7 +70,7 @@ def test_mel_matrix_matches_tf(num_mel_bins, num_spectrogram_bins, sample_rate, 
     [(320, 160, 320), (1024, 512, 1024), (128, 64, 256), (512, 512, 256), (320, 160, None)],
 )
 def test_power_stft_matmul_matches_rfft(audio, frame_length, frame_step, fft_length, monkeypatch):
-    """The device path's fused windowed-rDFT matmul (MXU) == |rfft|², across
+    """The device path's fused windowed-rDFT matmul == |rfft|², across
     power-of-two, non-power-of-two, zero-padded (fft>frame) and truncated
     (fft<frame) transforms.  On the real chip precision=HIGHEST keeps the
     matmul f32-exact (max |Δ| 4e-7 of peak power — PERF.md round-7)."""

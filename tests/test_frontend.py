@@ -1,7 +1,7 @@
 """Fused on-device batch frontend must match the host per-example pipeline.
 
 Coverage spans every shipped feature type (the frontend is the DEFAULT path
-for TPU tsv runs, configs/train_config.py): log-mel (libri), MFCC (kspon),
+for GPU tsv runs, configs/train_config.py): log-mel (libri), MFCC (kspon),
 and raw spectrogram, plus SpecAugment-enabled masking semantics."""
 
 import dataclasses

@@ -175,7 +175,7 @@ def test_walk_files_and_copy_tree(fake_gcs, tmp_path):
 
 
 def test_checkpoint_save_restore_gcs(fake_gcs):
-    """Orbax weights checkpoints stage through a temp dir to/from gs://
+    """Weights checkpoints stage through a temp dir to/from gs://
     (parity: reference checkpointed to gs:// via gfile, run/train.py:208-212)."""
     import numpy as np
 

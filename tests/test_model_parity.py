@@ -3,7 +3,7 @@
 The load-bearing evidence for the WER-parity north star: the reference's
 shipped mini checkpoints (tests/data/model-checkpoints/{las,ds}.ckpt) are
 loaded into BOTH the reference TF models (/root/reference/speech_recognition/
-models/las.py:295-406, deepspeech2.py:122-202) and our converted Flax models,
+models/las.py:295-406, deepspeech2.py:122-202) and our converted models,
 then both are run on the same inputs — logits must match and greedy decodes
 must be identical, including on padded batches.
 """
@@ -247,7 +247,7 @@ def test_las_fixture_decode_parity(las_pair):
 
 def test_las_raw_frontend_decode_parity(las_pair):
     """The raw-PCM decode path (quantized raw batching + fused on-device
-    frontend — the TPU tsv default in evaluate/inference) must produce the
+    frontend — the GPU tsv default in evaluate/inference) must produce the
     SAME tokens as the host-featurized path on real fixture audio with the
     converted reference weights (trained => peaked logits, so the ~1e-6
     matmul-STFT-vs-rfft feature deltas cannot flip the decode)."""

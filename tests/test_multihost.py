@@ -1,7 +1,7 @@
 """Multi-host data-split coverage.
 
-On a real TPU pod every jax process must feed its addressable devices a
-disjoint slice of the dataset — the job TPUStrategy's automatic dataset
+On a multi-host cluster every jax process must feed its addressable devices a
+disjoint slice of the dataset — the job the reference strategy's automatic dataset
 distribution did for the reference (reference speech_recognition/utils.py:
 130-156).  Here that is the ``shard=(index, count)`` stride in the dataset
 layer plus ``jax.make_array_from_process_local_data`` assembly in

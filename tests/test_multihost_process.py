@@ -5,7 +5,7 @@
 jax processes (`jax.distributed.initialize`, CPU backend, 4 virtual devices
 each, gloo collectives) running the actual train CLI with
 ``--coordinator-address``, so the code paths the reference ran under a real
-TPUStrategy cluster (reference speech_recognition/utils.py:130-156) are
+distribution-strategy cluster (reference speech_recognition/utils.py:130-156) are
 exercised across an actual process boundary:
 
 - dataset ``shard=(process_index, process_count)`` stride feeding

@@ -100,7 +100,7 @@ def test_pdx_grads_match_autodiff(T, F, C, O, kt, kf, st, sf):
 def test_conv2dvalid_module_dispatch(monkeypatch):
     """Module path parity: forced s2d == disabled s2d, same param pytree as
     nn.Conv (names/shapes), on any backend."""
-    import flax.linen as nn
+    nn = pytest.importorskip("flax.linen")
 
     rng = np.random.RandomState(1)
     x = jnp.asarray(rng.randn(2, 30, 12, 3), jnp.float32)

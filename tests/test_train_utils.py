@@ -33,7 +33,7 @@ def test_schedule_warmup_rate_default():
 
 
 def test_train_step_reduces_loss():
-    import flax.linen as nn
+    from speech_recognition_tpu import nn
 
     class Tiny(nn.Module):
         @nn.compact
@@ -123,3 +123,26 @@ def test_latest_checkpoint_mixed_directory(tmp_path):
     b.mkdir()
     os.utime(b, (50.0, 50.0))
     assert latest_checkpoint(str(only)) == str(a)
+
+
+def test_train_step_reports_the_gradient_global_norm():
+    from speech_recognition_tpu import nn
+
+    class Tiny(nn.Module):
+        @nn.compact
+        def __call__(self, x, training=False):
+            return nn.Dense(4)(x)
+
+    model = Tiny()
+    x = jax.random.normal(jax.random.PRNGKey(3), (8, 3))
+    y = jnp.array([1, 2, 3, 0, 1, 2, 3, 1])
+    variables = model.init(jax.random.PRNGKey(0), x)
+
+    def loss_fn(y_true, logits):
+        return optax.softmax_cross_entropy_with_integer_labels(logits, y_true).mean()
+
+    grads = jax.grad(lambda p: loss_fn(y, model.apply({"params": p}, x)))(variables["params"])
+    expected = np.sqrt(sum(float(np.sum(np.square(g))) for g in jax.tree_util.tree_leaves(grads)))
+    state = TrainState.create(dict(variables), optax.sgd(0.1))
+    _, metrics = make_train_step(model, loss_fn)(state, x, y, jax.random.PRNGKey(1))
+    np.testing.assert_allclose(float(metrics["grad_norm"]), expected, rtol=1e-5)

@@ -1,6 +1,6 @@
 """Pruned (banded) RNN-T lattice: band construction, banded-joint parity
 with the dense joint, the path-subset loss law, the brute-force oracle on
-NEG-floored planes, and the fused Pallas pair (interpret mode).
+NEG-floored planes.
 
 The pruned objective restricts each frame to an s_range-wide label band
 (ops/transducer_pruned.py); correctness decomposes into
@@ -8,15 +8,13 @@ The pruned objective restricts each frame to an s_range-wide label band
 (b) the banded joint equals the dense joint gathered on the band
     (values and all gradients),
 (c) the NEG-floored dense planes drive the UNCHANGED lattice DP to the
-    pruned path sum (oracle + the upper-bound law vs the dense loss),
-(d) the Pallas kernel equals the XLA banded scan (values + gradients).
+    pruned path sum (oracle + the upper-bound law vs the dense loss).
 """
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from speech_recognition_tpu.ops.transducer import (
     _NEG,
@@ -213,115 +211,6 @@ def test_pruned_loss_gradients_flow_and_are_finite():
         assert np.abs(g).max() > 0  # gradient reaches every operand
 
 
-# ------------------------------------------------------- fused Pallas pair
-
-
-@pytest.mark.parametrize(
-    "seed,B,T,J,U1,V,S",
-    [
-        (0, 2, 5, 16, 6, 256, 2),    # Sp=4, TF=32, odd T (frame padding)
-        (1, 3, 16, 8, 5, 128, 3),    # Sp=4, exact Tp
-        (4, 2, 6, 16, 6, 256, 4),    # Sp=4 at full band occupancy
-        (5, 2, 5, 16, 8, 256, 8),    # Sp=8 (TF=16)
-        (2, 2, 3, 16, 100, 256, 8),  # Sp=8, U1p=128 dpred width
-        (3, 2, 4, 16, 6, 256, 12),   # Sp=16 (TF=8) layout
-        (6, 2, 4, 16, 40, 256, 24),  # Sp=32 (TF=4) — the widest gated layout
-    ],
-)
-def test_fused_banded_matches_xla(seed, B, T, J, U1, V, S):
-    from speech_recognition_tpu.ops.pallas.band_kernel import fused_banded_planes
-
-    enc, pred, wo, bo, ids, frame_lens, label_lens = _case(seed, B, T, J, U1, V, bf)
-    p = band_offsets(frame_lens, label_lens, T, S)
-    u_true = np.asarray(p)[:, :, None] + np.arange(S)[None, None, :]
-    # out-of-range band slots receive ZERO cotangents in real use (the
-    # band_to_dense scatter drops them) — that is the op's grad contract
-    valid_b = jnp.asarray(u_true <= U1 - 1)
-    valid_e = jnp.asarray(u_true <= U1 - 2)
-    rng = np.random.RandomState(seed + 9)
-    cb = jnp.asarray(rng.randn(B, T, S).astype(np.float32)) * valid_b
-    ce = jnp.asarray(rng.randn(B, T, S).astype(np.float32)) * valid_e
-
-    def scal(fn):
-        def s(enc, pred, wo, bo):
-            lpb, lpe = fn(0, S, enc, pred, wo, bo, ids, p)
-            return jnp.sum(lpb * cb) + jnp.sum(lpe * ce)
-
-        return s
-
-    lpb_r, lpe_r = banded_joint_planes(0, S, enc, pred, wo, bo, ids, p)
-    l_r, g_r = jax.value_and_grad(scal(banded_joint_planes), argnums=(0, 1, 2, 3))(
-        enc, pred, wo, bo
-    )
-    with pltpu.force_tpu_interpret_mode():
-        lpb_f, lpe_f = fused_banded_planes(0, S, enc, pred, wo, bo, ids, p)
-        l_f, g_f = jax.value_and_grad(scal(fused_banded_planes), argnums=(0, 1, 2, 3))(
-            enc, pred, wo, bo
-        )
-
-    np.testing.assert_allclose(
-        np.asarray(lpb_f), np.asarray(lpb_r), rtol=0, atol=5e-3
-    )
-    # emit plane: only band slots that map to real labels are contractual
-    np.testing.assert_allclose(
-        np.asarray(jnp.where(valid_e, lpe_f, 0.0)),
-        np.asarray(jnp.where(valid_e, lpe_r, 0.0)),
-        rtol=0, atol=5e-3,
-    )
-    assert abs(float(l_r) - float(l_f)) < 5e-2 * (1 + abs(float(l_r)))
-    for name, a, g in zip(("enc", "pred", "wo", "bo"), g_r, g_f):
-        a, g = np.asarray(a, np.float32), np.asarray(g, np.float32)
-        np.testing.assert_allclose(
-            g, a, rtol=0, atol=4e-2 * (np.abs(a).max() + 1e-3), err_msg=name
-        )
-
-
-def test_fused_banded_nonzero_blank():
-    from speech_recognition_tpu.ops.pallas.band_kernel import fused_banded_planes
-
-    B, T, J, U1, V, S = 2, 4, 8, 4, 128, 2
-    enc, pred, wo, bo, ids, frame_lens, label_lens = _case(5, B, T, J, U1, V, bf)
-    p = band_offsets(frame_lens, label_lens, T, S)
-    lpb_r, lpe_r = banded_joint_planes(77, S, enc, pred, wo, bo, ids, p)
-    with pltpu.force_tpu_interpret_mode():
-        lpb_f, lpe_f = fused_banded_planes(77, S, enc, pred, wo, bo, ids, p)
-    np.testing.assert_allclose(np.asarray(lpb_f), np.asarray(lpb_r), rtol=0, atol=5e-3)
-
-
-def test_banded_support_gate(monkeypatch):
-    """Deterministic gate pins: device-environment checks are mocked (the
-    suite's CLI/parallel tests can leak an active-mesh registration, so a
-    raw batch_shards probe here would be order-dependent — CLAUDE.md
-    round-14 lesson)."""
-    from speech_recognition_tpu.ops.pallas import band_kernel
-    from speech_recognition_tpu.ops.pallas.band_kernel import banded_planes_supported
-
-    enc, pred, wo, bo, ids, *_ = _case(6, 2, 4, 16, 4, 256, bf)
-    monkeypatch.setenv("SRT_PALLAS_FORCE", "1")
-    monkeypatch.setattr(band_kernel, "batch_shards", lambda n: (1, n))
-    assert banded_planes_supported(enc, pred, wo, ids, 4)
-    assert not banded_planes_supported(
-        enc.astype(jnp.float32), pred.astype(jnp.float32), wo, ids, 4
-    )
-    assert not banded_planes_supported(enc, pred, wo[:, :200], ids, 4)
-    assert not banded_planes_supported(enc, pred, wo, ids, 0)
-    # bands wider than the validated Sp<=32 layouts decline loudly
-    # (round-4 advisor: don't reach an unpinned tiling)
-    assert not banded_planes_supported(enc, pred, wo, ids, 33)
-    # mismatched operand widths (ids must be pred's U+1 minus one)
-    assert not banded_planes_supported(enc, pred, wo, ids[:, :-1], 4)
-    # an unshardable batch declines (loudly)
-    monkeypatch.setattr(band_kernel, "batch_shards", lambda n: None)
-    assert not banded_planes_supported(enc, pred, wo, ids, 4)
-    monkeypatch.setattr(band_kernel, "batch_shards", lambda n: (1, n))
-    # backend gate: CPU without SRT_PALLAS_FORCE never fires
-    monkeypatch.delenv("SRT_PALLAS_FORCE")
-    import jax as _jax
-
-    monkeypatch.setattr(_jax, "default_backend", lambda: "cpu")
-    assert not banded_planes_supported(enc, pred, wo, ids, 4)
-
-
 def test_overfit_curve_pruned_tracks_dense():
     """Learning-curve comparison (the pruned objective must optimize like
     the dense one): overfit the same tiny batch with both losses; both
@@ -444,30 +333,3 @@ def test_model_pruned_excludes_infeasible_rows():
         pruned_range=4,
     )
     assert cfg.create_model().pruned_range == 4
-
-
-def test_pruned_routes_through_fused_kernel(monkeypatch):
-    """pruned_log_planes must FIRE the fused kernel when the gate passes
-    (the silent-no-op regression class)."""
-    from speech_recognition_tpu.ops.pallas import band_kernel
-
-    B, T, J, U1, V, S = 2, 4, 16, 4, 256, 2
-    enc, pred, wo, bo, ids, frame_lens, label_lens = _case(7, B, T, J, U1, V, bf)
-    calls = []
-    real = band_kernel.fused_banded_planes
-
-    def spy(*args, **kw):
-        calls.append(1)
-        return real(*args, **kw)
-
-    monkeypatch.setenv("SRT_PALLAS_FORCE", "1")
-    monkeypatch.setattr(band_kernel, "fused_banded_planes", spy)
-    monkeypatch.setattr(band_kernel, "banded_planes_supported", lambda *a: True)
-    with pltpu.force_tpu_interpret_mode():
-        pruned_log_planes(0, S, enc, pred, wo, bo, ids, frame_lens, label_lens)
-    assert calls, "fused banded kernel did not fire"
-    # and SRT_FUSED_JOINT=0 must force the XLA scan
-    calls.clear()
-    monkeypatch.setenv("SRT_FUSED_JOINT", "0")
-    pruned_log_planes(0, S, enc, pred, wo, bo, ids, frame_lens, label_lens)
-    assert not calls

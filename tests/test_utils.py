@@ -43,3 +43,63 @@ def test_path_join():
     assert path_join("gs://bucket", "a", "b") == "gs://bucket/a/b"
     assert path_join("gs://bucket/", "a/") == "gs://bucket/a"
     assert path_join("/local", "a", "b").endswith("/local/a/b")
+
+
+def test_flag_registry_covers_sources():
+    """Every SRT_* flag referenced anywhere in the package must have a
+    registry entry (and therefore a README row + a train_configs.txt dump
+    line); a new undocumented flag fails here, and so does a stale entry."""
+    import pathlib
+    import re
+
+    import speech_recognition_tpu
+    from speech_recognition_tpu.utils.srt_flags import SRT_FLAG_DEFAULTS
+
+    pkg = pathlib.Path(speech_recognition_tpu.__file__).parent
+    used = set()
+    for path in pkg.rglob("*.py"):
+        used |= set(re.findall(r"SRT_[A-Z_0-9]+", path.read_text()))
+    used.discard("SRT_FLAG_DEFAULTS")
+    missing = used - set(SRT_FLAG_DEFAULTS)
+    assert not missing, f"undocumented SRT_* flags: {sorted(missing)}"
+    stale = set(SRT_FLAG_DEFAULTS) - used
+    assert not stale, f"registry entries with no source use: {sorted(stale)}"
+
+
+def test_matmul_stft_lowers_to_matmuls_at_shipped_frontend_params():
+    """The default-on matmul STFT must lower to dot_generals, not an FFT,
+    at the shipped frontend params (frame 320 / step 160 / fft 320)."""
+    import jax
+    import jax.numpy as jnp
+
+    from speech_recognition_tpu.ops.features import power_stft
+
+    jaxpr = str(
+        jax.make_jaxpr(lambda a: power_stft(a, 320, 160, 320))(jax.ShapeDtypeStruct((2, 16000), jnp.float32))
+    )
+    assert "fft" not in jaxpr
+    assert "dot_general" in jaxpr
+
+
+def test_conformer_training_dropout_is_the_hash():
+    """The Conformer's training dropout must be the counter-based hash (no
+    threefry bit generation in the traced step) unless SRT_FAST_DROPOUT=0."""
+    import os
+
+    import jax
+    import jax.numpy as jnp
+
+    from speech_recognition_tpu.models.conformer import ConformerBlock
+
+    assert os.environ.get("SRT_FAST_DROPOUT", "1") != "0"
+    block = ConformerBlock(64, 2, 8, 2, 0.1, dtype=jnp.bfloat16)
+    x = jnp.zeros((2, 16, 64), jnp.bfloat16)
+    mask = jnp.ones((2, 16), bool)
+    variables = block.init({"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, x, mask, True)
+    jaxpr = str(
+        jax.make_jaxpr(lambda v, x: block.apply(v, x, mask, True, rngs={"dropout": jax.random.PRNGKey(2)}))(
+            variables, x
+        )
+    )
+    assert "threefry" not in jaxpr
+    assert "bernoulli" not in jaxpr

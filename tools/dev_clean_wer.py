@@ -9,10 +9,10 @@ the READY-TO-RUN gate for the day they do:
         --checkpoint /path/to/release/las.ckpt \
         --dev-clean-tsv /data/libri/dev-clean.tsv \
         --dev-other-tsv /data/libri/dev-other.tsv \
-        [--beam-size 8] [--device TPU]
+        [--beam-size 8] [--device GPU]
 
 It (1) converts the TF checkpoint via compat.tf_checkpoint when given a
-TF prefix (an Orbax directory passes through), (2) beam-decodes each tsv
+TF prefix (a checkpoint directory passes through), (2) beam-decodes each tsv
 through run.evaluate — the real CLI path, on-device frontend included —
 (3) recomputes corpus WER/CER from the per-utterance report, and
 (4) prints PASS/FAIL against the reference numbers (+0.5pt tolerance).
@@ -41,9 +41,9 @@ TARGETS = {
 TOLERANCE_PT = 0.5  # percentage points above the published number
 
 
-def ensure_orbax(checkpoint: str, staging: str) -> str:
-    """Convert a TF checkpoint prefix to Orbax if needed (idempotent)."""
-    if os.path.isdir(checkpoint):  # already an Orbax directory
+def ensure_checkpoint_dir(checkpoint: str, staging: str) -> str:
+    """Convert a TF checkpoint prefix to a checkpoint directory if needed (idempotent)."""
+    if os.path.isdir(checkpoint):  # already a checkpoint directory
         return checkpoint
     from speech_recognition_tpu.compat.tf_checkpoint import convert_and_save
 
@@ -85,7 +85,7 @@ def score(report):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--checkpoint", help="release TF checkpoint prefix or Orbax dir")
+    ap.add_argument("--checkpoint", help="release TF checkpoint prefix or checkpoint dir")
     ap.add_argument("--dev-clean-tsv")
     ap.add_argument("--dev-other-tsv")
     ap.add_argument("--data-config", default=os.path.join(REPO, "resources/configs/libri_config.yml"))
@@ -93,7 +93,7 @@ def main():
     ap.add_argument("--sp-model-path",
                     default=os.path.join(REPO, "resources/sp-models/sp_model_unigram_16K_libri.model"))
     ap.add_argument("--beam-size", type=int, default=8)
-    ap.add_argument("--device", default="TPU")
+    ap.add_argument("--device", default="GPU")
     ap.add_argument("--output-dir", default=None, help="where reports go (default: temp)")
     ap.add_argument("--dry-run", action="store_true",
                     help="fixture tsv + reference mini checkpoint; no gate comparison")
@@ -105,7 +105,7 @@ def main():
         args.checkpoint = args.checkpoint or ref_mini
         args.data_config = os.path.join(REPO, "tests/data/wer_gate_dryrun_data_config.yml")
         args.model_config = os.path.join(REPO, "tests/data/model-configs/las_ref_ckpt_mini.yml")
-        args.device = "CPU" if args.device == "TPU" else args.device
+        args.device = "CPU"
         datasets["fixture"] = os.path.join(REPO, "tests/data/wav_dataset.tsv")
     else:
         if not args.checkpoint:
@@ -120,7 +120,7 @@ def main():
     out_dir = args.output_dir or tempfile.mkdtemp(prefix="wer-gate-")
     os.makedirs(out_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="wer-gate-ckpt-") as staging:
-        ckpt = ensure_orbax(args.checkpoint, staging)
+        ckpt = ensure_checkpoint_dir(args.checkpoint, staging)
         failures = 0
         for name, tsv in datasets.items():
             report = os.path.join(out_dir, f"{name}.tsv")

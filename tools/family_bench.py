@@ -1,31 +1,23 @@
-"""Per-family train-step bench: LAS / DS2 / Conformer / Transducer in ONE
-bounded run, written to BENCH_FAMILIES.json at the repo root.
+"""Per-family train-step bench on one NVIDIA GPU: LAS / DS2 / Conformer /
+Transducer at the bench shapes (B=128, T=1024 audio frames, 16K vocab), each
+family at its shipped small config (resources/configs/{las_small,deepspeech,
+conformer_small,transducer_small}.yml sizes), in bf16.
 
-Purpose (VERDICT round-2 #3/#4): make non-LAS perf driver-visible round
-over round, and replace hand FLOP estimates with the rigorous method
-bench.py uses — ``lower().compile().cost_analysis()`` flops -> MFU against
-the chip's peak bf16 FLOP/s.  Caveat inherited from bench.py:107-117:
-cost_analysis counts a lax.scan body ONCE, so families with in-scan
-matmuls (LAS/DS2 recurrences, transducer joint planes) report a LOWER
-BOUND on flops and therefore on MFU.
+Per family: compile time, median step time over timed steps (each waited
+for with ``block_until_ready``), utt/s, and XLA's cost-analysis FLOPs with
+the MFU they imply against the card's published peak (bench.PEAKS; a lower
+bound: cost analysis counts a scan body once).  Results print as JSON.
 
-Shapes: the framework bench shapes (B=128, T=1024 audio frames, 16K
-vocab), each family at its shipped small config (resources/configs/
-{las_small,deepspeech,conformer_small,transducer_small}.yml sizes).
-
-Every measurement also records which fused fast paths FIRED vs DECLINED
-(ops/pallas/fallback.py events captured across trace+steps) — the
-round-14/15 lesson ("verify a new fast path actually fires") applied
-systematically.
-
-Run: python tools/family_bench.py            (real TPU; bound >= 3000 s)
+Run: python tools/family_bench.py
      FAMILIES=conformer,transducer python tools/family_bench.py  (subset)
-     python tools/family_bench.py --shapes   (off-bench shape matrix ->
-         BENCH_SHAPES.json; VERDICT r4 #5.  CELLS=base,B32 filters.)
+     python tools/family_bench.py --shapes   (off-bench shape matrix;
+         CELLS=base,B32 filters)
+Fails without a GPU, on an unknown device kind, or when any family fails.
 """
 
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -33,33 +25,22 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 import optax
 
-from bench import _flops_per_step, _peak_flops
+from bench import card, flops_per_step, peak, timed_calls
 from speech_recognition_tpu.train import TrainState, linear_warmup_decay, make_train_step
 
 B, T, V = 128, 1024, 16000
-rng = jax.random.PRNGKey(0)
-tx = optax.adam(linear_warmup_decay(10000, 2e-4, 1e-5))
-on_tpu = jax.default_backend() == "tpu"
-dtype = jnp.bfloat16 if on_tpu else jnp.float32
-REPS = int(os.environ.get("FAMILY_REPS", 3))
+dtype = jnp.bfloat16
+REPS = int(os.environ.get("FAMILY_REPS", 8))
 
-# train-step fast paths each family is EXPECTED to fire at bench shapes —
-# "fired" below is expected minus declined, so a silent no-op shows up as
-# a missing entry in the cell's fired list
-TRAIN_PATHS = {
-    "las": ("ce_vocab",),
-    "deepspeech2": ("ctc_vocab_emissions",),
-    "conformer": ("fused_mhsa", "ctc_vocab_emissions"),
-    "transducer": ("transducer_joint",),
-    "transducer_pruned": ("banded_joint",),
-    "transducer_pruned8": ("banded_joint",),
-}
+
+def _rng():
+    return jax.random.PRNGKey(0)
 
 
 def _ctc_tokens(b=None):
+    rng = _rng()
     b = b or B
     return jnp.concatenate(
         [jax.random.randint(rng, (b, 40), 1, V), jnp.zeros((b, 24), jnp.int32)], axis=1
@@ -67,6 +48,7 @@ def _ctc_tokens(b=None):
 
 
 def build_las(b=None, t=None, v=None):
+    rng = _rng()
     from speech_recognition_tpu.models import LAS
 
     b, t, v = b or B, t or T, v or V
@@ -86,6 +68,7 @@ def build_las(b=None, t=None, v=None):
 
 
 def build_deepspeech2(b=None, t=None, v=None):
+    rng = _rng()
     from speech_recognition_tpu.models import DeepSpeech2
 
     b, t, v = b or B, t or T, v or V
@@ -101,6 +84,7 @@ def build_deepspeech2(b=None, t=None, v=None):
 
 
 def build_conformer(b=None, t=None, v=None):
+    rng = _rng()
     from speech_recognition_tpu.models import Conformer
 
     b, t, v = b or B, t or T, v or V
@@ -117,6 +101,7 @@ def build_conformer(b=None, t=None, v=None):
 
 
 def build_transducer(pruned_range=0, b=None, t=None, v=None):
+    rng = _rng()
     from speech_recognition_tpu.models import Transducer
 
     b, t, v = b or B, t or T, v or V
@@ -141,9 +126,7 @@ BUILDERS = {
     "conformer": build_conformer,
     "transducer": build_transducer,
     # pruned (banded) lattice, s_range=4 — the SHIPPED transducer training
-    # objective (resources/configs/transducer_small.yml pruned_range: 4;
-    # same model/checkpoints as dense, quality A/B in
-    # tools/pruned_quality_ab.json)
+    # objective (resources/configs/transducer_small.yml pruned_range: 4)
     "transducer_pruned": lambda **kw: build_transducer(pruned_range=4, **kw),
     # wider-band sweep row (transducer_small_pruned.yml): on demand via
     # FAMILIES=transducer_pruned8, not part of the default sweep
@@ -155,106 +138,61 @@ BUILDERS = {
 DEFAULT_FAMILIES = [n for n in BUILDERS if n != "transducer_pruned8"]
 
 
-def measure(name, builder, reps=None, n_long=8):
-    from speech_recognition_tpu.ops.pallas.fallback import fallback_events, reset_fallbacks
-
-    reset_fallbacks()
+def measure(name, builder, reps=None):
     model, variables, step, model_input, y_true = builder()
     n_params = sum(x.size for x in jax.tree_util.tree_leaves(variables["params"]))
-    state = TrainState.create(dict(variables), tx)
+    rng = _rng()
+    state = TrainState.create(dict(variables), optax.adam(linear_warmup_decay(10000, 2e-4, 1e-5)))
     t0 = time.perf_counter()
     compiled = step.lower(state, model_input, y_true, rng).compile()
     compile_s = time.perf_counter() - t0
-    flops = _flops_per_step(compiled)
+    flops = flops_per_step(compiled)
     batch = jax.tree_util.tree_leaves(model_input)[0].shape[0]
     print(f"[{name}] {n_params/1e6:.1f} M params, compile {compile_s:.1f} s", flush=True)
+    holder = {"state": state}
 
-    def chain(state, n, seed):
-        for i in range(n):
-            state, metrics = compiled(state, model_input, y_true, jax.random.fold_in(rng, seed + i))
-        return state, float(metrics["loss"])
+    def one_step(i):
+        holder["state"], metrics = compiled(holder["state"], model_input, y_true, jax.random.fold_in(rng, i))
+        return holder["state"].params, metrics["loss"]
 
-    state, l0 = chain(state, 1, 0)
-    best = np.inf
-    for rep in range(reps or REPS):
-        t0 = time.perf_counter(); state, _ = chain(state, 1, 100 + rep); t1 = time.perf_counter() - t0
-        t0 = time.perf_counter(); state, _ = chain(state, n_long, 200 + 10 * rep); tn = time.perf_counter() - t0
-        ms = (tn - t1) / (n_long - 1) * 1e3
-        best = min(best, ms)
-        print(f"[{name}] rep{rep}: {ms:.1f} ms/step ({batch / ((tn - t1) / (n_long - 1)):.0f} utt/s)", flush=True)
-
-    declined = sorted({k for k, _ in fallback_events()})
-    reasons = sorted({f"{k}: {r}" for k, r in fallback_events()})
-    fired = [k for k in TRAIN_PATHS.get(name, ()) if k not in declined]
-    peak = _peak_flops(jax.devices()[0])
-    mfu = round(flops / (best / 1e3) / peak, 4) if flops and peak else None
+    timed_calls(one_step, 1)  # warm-up
+    times = timed_calls(one_step, reps or REPS)
+    step_s = statistics.median(times)
     out = {
-        "step_ms": round(best, 2),
-        "utt_per_s": round(batch / (best / 1e3), 1),
-        "params_m": round(n_params / 1e6, 2),
+        "step_ms": step_s * 1e3,
+        "step_ms_all": [t * 1e3 for t in times],
+        "utt_per_s": batch / step_s,
+        "params_m": n_params / 1e6,
         "flops_per_step": flops,
-        "mfu_lower_bound": mfu,
-        "loss0": round(l0, 4),
-        "compile_s": round(compile_s, 1),
-        "fastpaths_fired": fired,
-        "fastpaths_declined": reasons,
+        "mfu_lower_bound": flops / step_s / peak(jax.devices()[0])["bf16_flops"],
+        "compile_s": compile_s,
     }
-    print(f"[{name}] best {best:.1f} ms/step, MFU>= {mfu}, fired={fired}", flush=True)
+    print(f"[{name}] median {out['step_ms']:.2f} ms/step, MFU >= {out['mfu_lower_bound']:.4f}", flush=True)
     return out
 
 
-def _snapshot(path):
-    """Per-round snapshot (VERDICT r3 #6): regressions in any family must be
-    a one-line diff, not git archaeology.  Round number comes from ROUND
-    or the highest driver-written BENCH_r*.json + 1 (the upcoming round)."""
-    import glob
-    import re
-    import shutil
+def _header():
+    from speech_recognition_tpu.backend import select_device, setup_compile_cache
 
-    root = os.path.dirname(path)
-    round_no = os.environ.get("ROUND")
-    if not round_no:
-        seen = [
-            int(m.group(1))
-            for f in glob.glob(os.path.join(root, "BENCH_r*.json"))
-            for m in [re.search(r"BENCH_r(\d+)\.json$", f)]
-            if m
-        ]
-        round_no = f"{max(seen, default=0) + 1:02d}"
-    base = os.path.basename(path).rsplit(".", 1)[0]
-    snap = os.path.join(root, f"{base}_r{round_no}.json")
-    shutil.copy(path, snap)
-    return snap
+    setup_compile_cache()
+    select_device("GPU")
+    device = jax.devices()[0]
+    peak(device)
+    return {"device": device.device_kind, "card": card()}
 
 
 def main():
     which = os.environ.get("FAMILIES", ",".join(DEFAULT_FAMILIES)).split(",")
-    device = jax.devices()[0]
-    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "BENCH_FAMILIES.json")
-    results = {
-        "device": getattr(device, "device_kind", str(device)),
-        "batch": B,
-        "audio_frames": T,
-        "families": {},
-    }
-    if os.path.exists(path):  # subset runs update the committed artifact
-        with open(path) as f:
-            prev = json.load(f)
-        if prev.get("batch") == B and prev.get("audio_frames") == T:
-            results["families"].update(prev.get("families", {}))
+    results = dict(_header(), batch=B, audio_frames=T, families={})
     for name in which:
         results["families"][name] = measure(name, BUILDERS[name])
-        with open(path, "w") as f:  # checkpoint after every family
-            json.dump(results, f, indent=1)
-    snap = _snapshot(path)
     print(json.dumps(results))
-    print(f"wrote {path} (+ snapshot {os.path.basename(snap)})", flush=True)
 
 
 # --------------------------------------------------- off-bench shape matrix
 
 # one-dimension-at-a-time variants around the bench point: plausible user
-# shapes (small batch, short/long audio, kspon 8K vocab).  VERDICT r4 #5.
+# shapes (small batch, short/long audio, kspon 8K vocab).
 CELLS = {
     "base": dict(b=128, t=1024, v=16000),
     "B32": dict(b=32, t=1024, v=16000),
@@ -267,26 +205,15 @@ CELLS = {
 def main_shapes():
     which = os.environ.get("FAMILIES", ",".join(DEFAULT_FAMILIES)).split(",")
     cells = os.environ.get("CELLS", ",".join(CELLS)).split(",")
-    device = jax.devices()[0]
-    path = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "BENCH_SHAPES.json"
-    )
-    results = {"device": getattr(device, "device_kind", str(device)), "cells": {}}
-    if os.path.exists(path):  # subset runs update the committed artifact
-        with open(path) as f:
-            results["cells"].update(json.load(f).get("cells", {}))
+    results = dict(_header(), cells={})
     for name in which:
         for cell in cells:
             kw = CELLS[cell]
-            key = f"{name}/{cell}"
-            print(f"=== {key}: {kw}", flush=True)
-            r = measure(name, lambda: BUILDERS[name](**kw), reps=1, n_long=4)
+            print(f"=== {name}/{cell}: {kw}", flush=True)
+            r = measure(name, lambda: BUILDERS[name](**kw), reps=3)
             r["shape"] = kw
-            results["cells"][key] = r
-            with open(path, "w") as f:  # checkpoint after every cell
-                json.dump(results, f, indent=1)
-    snap = _snapshot(path)
-    print(f"wrote {path} (+ snapshot {os.path.basename(snap)})", flush=True)
+            results["cells"][f"{name}/{cell}"] = r
+    print(json.dumps(results))
 
 
 if __name__ == "__main__":
